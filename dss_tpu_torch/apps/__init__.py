@@ -1,0 +1,1 @@
+"""apps of the dss_tpu_torch port."""

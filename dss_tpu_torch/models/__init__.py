@@ -1,0 +1,1 @@
+"""models of the dss_tpu_torch port."""

@@ -1,0 +1,1 @@
+"""ops of the dss_tpu_torch port."""

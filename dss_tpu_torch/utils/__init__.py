@@ -1,0 +1,1 @@
+"""utils of the dss_tpu_torch port."""

@@ -1,0 +1,1 @@
+"""vocoder of the dss_tpu_torch port."""
