@@ -5,16 +5,27 @@
 1. Builds the port's CUDA kernels (dss_tpu_torch/csrc) with nvcc.
 2. Holds each kernel against its plain PyTorch version on the card:
    log power (K1) at the packet shapes and at [20000, 64], atol 1e-5;
-   the LPCNet sampler (K2) greedy over two full-width frames (identical
-   excitations, atol 1e-5), and stochastic over one 50-frame block on the
-   same noise (first divergence after the first frame, RMS within 1 dB).
-3. Drives the port's online word path once: a 6 s, 129-channel synthetic
-   session (one loud burst) replayed in 40-sample packets at real time
-   through FusedFrontendVad -> FusedDecoderVocoder in the port's graph,
-   with a threshold-VAD checkpoint, a seeded 2 x 100 decoder and the
-   shipped weights/vocoder_speech.npz; at least one segment must close
-   and each word's int16 PCM must hold frames x 160 finite samples.  The
-   kernels' launch counts are zeroed just before and read just after.
+   the bunch-1 LPCNet sampler (K2) greedy over two full-width frames
+   (identical excitations, atol 1e-5), and stochastic over one 50-frame
+   block on the same noise (first divergence after the first frame, RMS
+   within 1 dB); the bunched sampler (K3) greedy over two full-width
+   frames of the shipped b2/b4/b8 checkpoints at one stream and of b4 at
+   eight (identical excitations, atol 1e-5), and stochastic over one
+   50-frame block of each of those four cases (K2's rule), timed per block.
+   A sampler's bound counts the gathered tables at the distinct rows the
+   block's data reads.
+3. Drives the port's online word path twice, with the shipped
+   weights/vocoder_speech.npz (bunch 1, K2) and with
+   weights/vocoder_speech_b8.npz (bunch 8, K3): a 16 s, 129-channel
+   synthetic session (three loud bursts) replayed in 40-sample packets at
+   real time through FusedFrontendVad -> FusedDecoderVocoder in the
+   port's graph, with a threshold-VAD checkpoint and a seeded 2 x 100
+   decoder; every burst must close a segment and each word's int16 PCM
+   must hold frames x 160 finite samples.  The kernels' launch counts are
+   zeroed just before each run and read just after it.
+   Then the offline entries: dss_tpu_torch.apps.synthesize on a seeded
+   [300, 20] feature file with the b4 checkpoint (a wav of 48000 int16
+   samples), and BatchedLPCNet(batch=8).
 4. Prints the kernels' line, latencies, the card's name and power limit,
    and last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
    without that line.  ``--report PATH`` also writes every measurement
@@ -57,13 +68,18 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def session(seconds=6.0, burst=(2.0, 3.5), seed=7):
-    """The synthetic session of tools/make_verify_fixtures.py."""
+def session(seconds=16.0, bursts=((2.0, 3.5), (7.0, 8.5), (12.0, 13.5)),
+            seed=7):
+    """The synthetic session of tools/make_verify_fixtures.py (6 s, one
+    loud burst at 2.0-3.5 s), continued with two more bursts so that a run
+    also shows word heads after the first: its first 6 s are that
+    fixture's samples."""
     fs = 1000
     rng = np.random.default_rng(seed)
     T = int(seconds * fs)
     envelope = np.full(T, 0.05)
-    envelope[int(burst[0] * fs):int(burst[1] * fs)] = 2.0
+    for start, stop in bursts:
+        envelope[int(start * fs):int(stop * fs)] = 2.0
     return rng.normal(size=(T, 129)) * envelope[:, None]
 
 
@@ -90,6 +106,43 @@ def threshold_vad():
     sd["classifier.weight"] = cls_w
     sd["classifier.bias"] = np.zeros(2, np.float32)
     return sd
+
+
+def gathered_rows(S, carry, lpc, sig):
+    """(rows of the fused GRU-A tables, rows of the correction tables) that
+    one sampler call gathers, counted once each over all streams:
+    recomputed from the call's initial carry, its LPC taps [T, B, P] and
+    its output samples [B, T*F].  The prediction is re-summed here and the
+    excitation is taken as encode(sample - prediction), so a sample that
+    was clipped, or a prediction that rounds onto a level's edge, may name
+    a neighbouring row; the count of distinct rows is what is used."""
+    from dss_tpu_torch.vocoder.mulaw import mulaw_encode
+    _, _, sig_mem0, exc0 = carry
+    B, N = sig.shape
+    P = sig_mem0.shape[1]
+    F = N // lpc.shape[0]
+    full = torch.cat([sig_mem0.flip(1), sig], dim=1)        # oldest first
+    taps = lpc.transpose(0, 1).repeat_interleave(F, dim=1)  # [B, N, P]
+    # pred[n] = -sum_k lpc[k] * sample[n - 1 - k]
+    pred = -(full.unfold(1, P, 1)[:, :N].flip(2) * taps).sum(-1)
+    s_idx = mulaw_encode(full)                              # sample n at P + n
+    p_idx = mulaw_encode(pred)
+    e_idx = torch.cat([exc0.long().reshape(B, -1).flip(1),
+                       mulaw_encode(sig - pred)], dim=1)    # exc n at S + n
+    n0 = torch.arange(0, N, S, device=sig.device)           # step starts
+
+    def distinct(x):
+        return int(torch.unique(x).numel())
+
+    emb = distinct(p_idx[:, n0])
+    corr = 0
+    for j in range(S):
+        emb += distinct(s_idx[:, P + n0 - 1 - j])
+        emb += distinct(e_idx[:, S + n0 - 1 - j])
+    for j in range(1, S):
+        corr += distinct(e_idx[:, S + n0 + j - 1])
+        corr += distinct(p_idx[:, n0 + j])
+    return emb, corr
 
 
 def pct(xs, q):
@@ -125,10 +178,13 @@ def main(report_path=None) -> int:
     from dss_tpu_torch.ops.filters import sosfilt_scan
     from dss_tpu_torch.ops.log_power import log_power, log_power_plain
     from dss_tpu_torch.ops.sampler import prepare_sampler_weights, \
-        sampler_frames, sampler_frames_plain, tile_sparse_pattern
+        sampler_frames, sampler_frames_bunched, \
+        sampler_frames_bunched_plain, sampler_frames_plain, \
+        tile_sparse_pattern
     from dss_tpu_torch.vocoder import net as tnet
     from dss_tpu_torch.vocoder.lpc import bands_from_cepstrum, lpc_from_bands
     from dss_tpu_torch.vocoder.lpcnet import _load_params
+    from dss_tpu_torch.vocoder.mulaw import MULAW_LEVELS
 
     dev = resolve_device("cuda")
     ph = Phases()
@@ -181,19 +237,53 @@ def main(report_path=None) -> int:
     model = tnet.LPCNetModel.from_params(params)
     w = prepare_sampler_weights(params)
 
-    def inputs(frames, seed):
+    def inputs(frames, seed, model=model, params=params, batch=1):
         g = torch.Generator().manual_seed(seed)
-        feats = torch.randn((1, frames, 20), generator=g) * 0.3
+        feats = torch.randn((batch, frames, 20), generator=g) * 0.3
         feats[..., 0] -= 4.0
         feats = feats.to(dev)
         cond = model.condition(params, feats)
         lpc, _ = lpc_from_bands(bands_from_cepstrum(feats[..., :18]))
         temp = 1.0 + 1.5 * torch.clamp(feats[..., 19] + 0.5, 0.0, 1.0)
-        st = tnet.net_vocoder_init(model, 1, device=dev)
+        st = tnet.net_vocoder_init(model, batch, device=dev)
         return ((st.h_a, st.h_b, st.sig_mem, st.exc_idx),
                 cond.transpose(0, 1).contiguous(),
                 lpc.transpose(0, 1).contiguous(),
                 temp.transpose(0, 1).contiguous())
+
+    def sampler_bound(model, params, w, S, carry, cond, lpc, temp, noise,
+                      sig):
+        """(bound ms, what bounds it, kept tile fraction, gathered rows) of
+        one sampler call.  Bytes: every dense weight, input and output byte
+        once, and of the gathered tables (the fused GRU-A tables and the
+        correction tables) only the distinct rows that this call's data
+        reads (``gathered_rows`` on its output ``sig``).  Operations: T*F/S
+        recurrences plus S heads each.  GRU-A's recurrent product counts
+        only the mask's kept [16 x 128] tiles (what the TPU kernels read),
+        though these kernels run it dense."""
+        GA, GB, CD = model.gru_a_units, model.gru_b_units, model.cond_dim
+        T = cond.shape[0]
+        n = T * 160 * cond.shape[1]
+        _, kept = tile_sparse_pattern(params["gru_a_mask"].cpu().numpy())
+        emb_rows, corr_rows = gathered_rows(S, carry, lpc, sig)
+        dense = sum(t.numel() for k, t in w.items()
+                    if k not in ("emb", "corr"))
+        wbytes = (dense - (1.0 - kept) * w["wh_a"].numel()
+                  + emb_rows * w["emb"].shape[-1]
+                  + corr_rows * MULAW_LEVELS) * 4
+        nbytes = (wbytes + noise.numel() * 4 + (cond.numel() + lpc.numel()
+                  + temp.numel()) * 4 + n * 4)
+        per_step = (kept * 2 * GA * 3 * GA + (2 * S + 1) * 3 * GA
+                    + 2 * GA * 3 * GB + 2 * GB * 3 * GB + 12 * (GA + GB)
+                    + S * (2 * GB * 512 + 3 * 256 + 2 * 16)
+                    + (S - 1) * 2 * 256)
+        flops = n / S * per_step + T * cond.shape[1] * 2 * CD * 3 * (GA + GB)
+        t_bytes = nbytes / H100_BYTES_PER_S
+        t_flops = flops / H100_F32_FLOPS
+        return (max(t_bytes, t_flops) * 1e3,
+                "bytes" if t_bytes > t_flops else "operations", kept,
+                dict(emb=emb_rows, corr=corr_rows,
+                     bytes_ms=t_bytes * 1e3, operations_ms=t_flops * 1e3))
 
     def k2_greedy():
         carry, cond, lpc, temp = inputs(2, 0)
@@ -224,34 +314,97 @@ def main(report_path=None) -> int:
         db = 20 * np.log10(rms_k / rms_p)
         ms = cuda_ms(lambda: sampler_frames(w, carry, cond, lpc, temp, noise),
                      5, warmup=1)
-        GA, GB, CD = model.gru_a_units, model.gru_b_units, model.cond_dim
         n = 50 * 160
-        # GRU-A's recurrent product needs only the mask's kept [16 x 128]
-        # tiles (what the TPU kernel reads), though this kernel runs it dense.
-        _, kept = tile_sparse_pattern(params["gru_a_mask"].cpu().numpy())
-        wbytes = (sum(t.numel() for t in w.values())
-                  - (1.0 - kept) * w["wh_a"].numel()) * 4
-        nbytes = (wbytes + noise.numel() * 4 + (cond.numel() + lpc.numel()
-                  + temp.numel()) * 4 + n * 4)
-        per_sample = (kept * 2 * GA * 3 * GA + 3 * 3 * GA + 2 * GA * 3 * GB
-                      + 2 * GB * 3 * GB + 2 * GB * 512 + 3 * 256
-                      + 12 * (GA + GB) + 2 * 16)
-        flops = n * per_sample + 50 * 2 * CD * 3 * (GA + GB)
-        bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
+        bound, bound_by, kept, rows = sampler_bound(
+            model, params, w, 1, carry, cond, lpc, temp, noise, ks)
         report["kernels"]["lpcnet_sampler_b1"].update(
             first_divergence=first, rms_db=db, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, gru_a_tiles_kept=kept,
-            bound_by="bytes" if nbytes / H100_BYTES_PER_S
-            > flops / H100_F32_FLOPS else "operations",
+            bound_ms=bound, gru_a_tiles_kept=kept, bound_by=bound_by,
+            bound_terms=rows,
             us_per_sample=ms * 1e3 / n, real_time_factor=ms / 500.0)
         print(f"K2 stochastic: first divergence at sample {first}, RMS "
               f"{rms_k:.4f} vs {rms_p:.4f} ({db:+.3f} dB), {ms:.1f} ms per "
               f"8000-sample block, real-time factor {ms / 500.0:.3f} (plain "
-              f"{plain_ms:.0f} ms); bound {bound:.4f} ms with {kept:.1%} of "
-              f"GRU-A's tiles kept")
+              f"{plain_ms:.0f} ms); bound {bound:.4f} ms ({bound_by}) with "
+              f"{kept:.1%} of GRU-A's tiles kept; {rows}")
         if first < 160 or not abs(db) < 1.0:
             raise AssertionError("K2 stochastic out of tolerance")
     ph.run("K2 sampler stochastic vs plain (50 frames)", k2_stochastic)
+
+    # ---- K3: bunched sampler ------------------------------------------------
+    bunched = {}
+    for S in (2, 4, 8):
+        p = _load_params(ROOT / "weights" / f"vocoder_speech_b{S}.npz", dev)
+        m = tnet.LPCNetModel.from_params(p)
+        bunched[S] = (m, p, tnet.sampler_weights_for(m, p))
+    report["kernels"]["lpcnet_sampler_bunched"] = k3 = dict(
+        max_abs_err=0.0, by_bunch={})
+
+    def k3_greedy():
+        for S, B in ((2, 1), (4, 1), (8, 1), (4, 8)):
+            m, p, wS = bunched[S]
+            carry, cond, lpc, temp = inputs(2, S, m, p, B)
+            temp = -torch.ones_like(temp)
+            kc, ks = sampler_frames_bunched(wS, carry, cond, lpc, temp, None)
+            pc, ps = sampler_frames_bunched_plain(wS, carry, cond, lpc, temp,
+                                                  None)
+            torch.cuda.synchronize()
+            err = float((ks - ps).abs().max())
+            print(f"K3 greedy b{S} B={B}: max err {err:.3g}")
+            if not torch.equal(kc[3], pc[3]) or not err <= 1e-5 \
+                    or tuple(kc[3].shape) != (B, S):
+                raise AssertionError(f"K3 greedy b{S} B={B}: exc {kc[3]} vs "
+                                     f"{pc[3]}, max err {err}")
+            k3["max_abs_err"] = max(k3["max_abs_err"], err)
+    ph.run("K3 bunched sampler greedy vs plain (b2/b4/b8, b4 at B=8)",
+           k3_greedy)
+
+    def k3_block():
+        for S, B in ((2, 1), (4, 1), (8, 1), (4, 8)):
+            m, p, wS = bunched[S]
+            noise = tnet.gumbel_noise(0, 0, 50, B, dev)
+            carry, cond, lpc, temp = inputs(50, 1, m, p, B)
+            run = lambda: sampler_frames_bunched(  # noqa: E731
+                wS, carry, cond, lpc, temp, noise)
+            ms = cuda_ms(run, 5, warmup=1)
+            _, ks = run()
+            t0 = time.perf_counter()
+            _, ps = sampler_frames_bunched_plain(wS, carry, cond, lpc, temp,
+                                                 noise)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            bound, bound_by, kept, rows = sampler_bound(
+                m, p, wS, S, carry, cond, lpc, temp, noise, ks)
+            diff = ((ks - ps).abs() > 1e-5).any(dim=0)
+            first = int(torch.nonzero(diff)[0]) if bool(diff.any()) \
+                else ks.shape[1]
+            rms_k = float(ks.pow(2).mean().sqrt())
+            rms_p = float(ps.pow(2).mean().sqrt())
+            db = 20 * np.log10(rms_k / rms_p)
+            n = 8000 * B
+            cell = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                bound_terms=rows, gru_a_tiles_kept=kept,
+                us_per_sample=ms * 1e3 / n, real_time_factor=ms / 500.0,
+                first_divergence=first, rms_db=db)
+            if B == 1:
+                k3["by_bunch"][S] = cell
+            else:
+                k3[f"b{S}_streams_{B}"] = cell
+            print(f"K3 b{S} B={B}: {ms:.1f} ms per 50-frame block "
+                  f"({ms * 1e3 / n:.2f} us per sample, real-time factor "
+                  f"{ms / 500.0:.3f}); bound {bound:.4f} ms ({bound_by}) "
+                  f"with {kept:.1%} of GRU-A's tiles kept; {rows}")
+            print(f"K3 b{S} B={B} stochastic: first divergence at sample "
+                  f"{first}, RMS {rms_k:.4f} vs {rms_p:.4f} ({db:+.3f} dB); "
+                  f"plain {plain_ms:.0f} ms")
+            if first < 160 or not abs(db) < 1.0:
+                raise AssertionError(f"K3 b{S} B={B} stochastic out of "
+                                     f"tolerance")
+        # The kernels' line carries b8 at one stream, the word path's shape.
+        k3.update(k3["by_bunch"][8])
+    ph.run("K3 bunched sampler per 50-frame block, stochastic vs plain "
+           "(b2/b4/b8 at one stream, b4 at eight)", k3_block)
 
     # ---- sosfilt_scan per packet (eager torch) --------------------------------
     def iir():
@@ -270,7 +423,18 @@ def main(report_path=None) -> int:
     ph.run("IIR cascade per packet", iir)
 
     # ---- the main path -----------------------------------------------------
-    def main_path():
+    counters = {"log_power": log_power,
+                "lpcnet_sampler_b1": sampler_frames,
+                "lpcnet_sampler_bunched": sampler_frames_bunched}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def main_path(key, weights_name, expect):
         from dss_tpu_torch import runtime as ez
         from dss_tpu_torch.apps.decode_online import feature_transforms
         from dss_tpu_torch.models.decoder import \
@@ -332,7 +496,7 @@ def main(report_path=None) -> int:
                         params=dict(nb_layer=2, nb_hidden_units=100,
                                     nb_electrodes=nb),
                         vocoder_weights=str(ROOT / "weights"
-                                            / "vocoder_speech.npz")))
+                                            / weights_name)))
 
                 def network(self):
                     return ((self.SOURCE.OUTPUT, self.FRONTEND.INPUT),
@@ -342,16 +506,14 @@ def main(report_path=None) -> int:
                             (self.WORDS.LPC, self.SINK.LPC))
 
             system = System()
-            log_power.launches = 0
-            sampler_frames.launches = 0
+            zero_counts()
             t0 = time.perf_counter()
             ez.run_system(system)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {"log_power": log_power.launches,
-                        "lpcnet_sampler_b1": sampler_frames.launches}
+            launches = read_counts()
         sink = system.SINK
-        mp = report["main_path"]
+        mp = report["main_path"][key] = {"vocoder_weights": weights_name}
         mp.update(
             wall_s=wall, launches=launches, words=len(sink.words),
             word_frames=[len(x) for x in sink.lpc],
@@ -360,7 +522,7 @@ def main(report_path=None) -> int:
             packet_calls=len(system.FRONTEND.step_ms),
             word_head_ms=system.WORDS.word_ms,
             ingest_to_first_audio_ms=sink.first_audio_ms)
-        print(f"main path: {len(sink.words)} word(s) of "
+        print(f"main path ({weights_name}): {len(sink.words)} word(s) of "
               f"{mp['word_frames']} frames, {wall:.1f} s wall, launches "
               f"{launches}; packet step p50 {mp['packet_ms_p50']:.2f} ms / "
               f"p95 {mp['packet_ms_p95']:.2f} ms over "
@@ -368,8 +530,9 @@ def main(report_path=None) -> int:
               f"{[round(x, 1) for x in system.WORDS.word_ms]} ms; "
               f"ingest->first audio "
               f"{[round(x, 1) for x in sink.first_audio_ms]} ms")
-        if not sink.words:
-            raise AssertionError("no segment closed")
+        if len(sink.words) != 3:
+            raise AssertionError(f"{len(sink.words)} segments closed for 3 "
+                                 f"bursts")
         for lpc, word in zip(sink.lpc, sink.words):
             if word.dtype != np.int16 or len(word) != len(lpc) * 160:
                 raise AssertionError(f"PCM {word.dtype} {len(word)} for "
@@ -394,11 +557,68 @@ def main(report_path=None) -> int:
             split["vocode_chunk_ms"].append((t2 - t1) * 1e3)
         mp["word_head_split"] = split
         print(f"word head split (steady state, ms): {split}")
-        for name, n in launches.items():
-            if n <= 0:
+        for name in expect:
+            if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the "
-                                     f"main path")
-    ph.run("main path (frontend+nVAD -> decoder+vocoder)", main_path)
+                                     f"main path with {weights_name}")
+    ph.run("main path, bunch 1 (frontend+nVAD -> decoder+vocoder)",
+           lambda: main_path("b1", "vocoder_speech.npz",
+                             ("log_power", "lpcnet_sampler_b1")))
+    ph.run("main path, bunch 8 (frontend+nVAD -> decoder+vocoder)",
+           lambda: main_path("b8", "vocoder_speech_b8.npz",
+                             ("log_power", "lpcnet_sampler_bunched")))
+
+    # ---- the offline entries ------------------------------------------------
+    def offline():
+        from scipy.io.wavfile import read as wavread
+
+        from dss_tpu_torch.apps import synthesize
+        from dss_tpu_torch.vocoder import BatchedLPCNet, \
+            packaged_weights_bunched
+
+        feats = np.random.default_rng(3).normal(size=(300, 20)).astype(
+            np.float32) * 0.3
+        feats[:, 0] -= 4.0
+        off = report["offline"] = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            np.save(Path(tmp) / "feats.npy", feats)
+            zero_counts()
+            t0 = time.perf_counter()
+            synthesize.main([str(Path(tmp) / "feats.npy"),
+                             str(Path(tmp) / "out.wav"), "--bunch", "4"])
+            off["synthesize_s"] = time.perf_counter() - t0
+            off["synthesize_launches"] = read_counts()
+            fs, pcm = wavread(Path(tmp) / "out.wav")
+        if fs != 16000 or pcm.dtype != np.int16 or pcm.shape != (300 * 160,) \
+                or not np.all(np.isfinite(pcm.astype(np.float64))) \
+                or not pcm.any():
+            raise AssertionError(f"synthesize: fs {fs}, {pcm.dtype} "
+                                 f"{pcm.shape}")
+        voc = BatchedLPCNet(batch=8, weights=packaged_weights_bunched(4))
+        zero_counts()
+        t0 = time.perf_counter()
+        out = voc.synthesize_frames(np.repeat(feats[None, :50], 8, axis=0))
+        off["batched_8x50_s"] = time.perf_counter() - t0
+        off["batched_launches"] = read_counts()
+        if out.dtype != np.int16 or out.shape != (8, 50 * 160) \
+                or not out.any():
+            raise AssertionError(f"BatchedLPCNet: {out.dtype} {out.shape}")
+        # The eight streams see the same features and their own noise:
+        # different samples at the same scale.
+        rms = np.sqrt((out.astype(np.float64) ** 2).mean(axis=1))
+        if rms.max() > 4.0 * max(rms.min(), 1.0):
+            raise AssertionError(f"BatchedLPCNet: stream RMS {rms}")
+        print(f"offline: synthesize 300 frames (b4) in "
+              f"{off['synthesize_s']:.2f} s, launches "
+              f"{off['synthesize_launches']}; BatchedLPCNet 8 x 50 frames "
+              f"in {off['batched_8x50_s']:.2f} s, launches "
+              f"{off['batched_launches']}")
+        for which in ("synthesize_launches", "batched_launches"):
+            if off[which]["lpcnet_sampler_bunched"] <= 0:
+                raise AssertionError(f"offline: K3 never launched "
+                                     f"({which})")
+    ph.run("offline entries (apps.synthesize b4, BatchedLPCNet 8 streams)",
+           offline)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -419,14 +639,21 @@ def main(report_path=None) -> int:
                       "dss_tpu/ops/pallas/log_power.py:32"),
         "lpcnet_sampler_b1": ("cuda", "dss_tpu_torch/csrc/lpcnet_sampler.cu",
                               "dss_tpu/ops/pallas/sampler.py:292"),
+        "lpcnet_sampler_bunched": (
+            "cuda", "dss_tpu_torch/csrc/lpcnet_sampler_bunched.cu",
+            "dss_tpu/ops/pallas/sampler.py:827"),
     }
+    # Each kernel's launches on the main path that runs it: K2 on the
+    # bunch-1 word path, K1 and K3 on the bunch-8 word path.
+    path_of = {"log_power": "b8", "lpcnet_sampler_b1": "b1",
+               "lpcnet_sampler_bunched": "b8"}
     kernels = []
     for name, (route, src, replaces) in meta.items():
         k = report["kernels"][name]
         kernels.append({
             "name": name, "route": route, "source": src,
             "replaces": replaces,
-            "launches": report["main_path"]["launches"][name],
+            "launches": report["main_path"][path_of[name]]["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None})

@@ -7,8 +7,11 @@ Reads the INI schema of apps/decode_online.py (e.g.
 config/debug_settings.ini) and builds the fused graph: ZMQ ingest ->
 FusedFrontendVad (front end + nVAD + segmenting) -> FusedDecoderVocoder
 (decoder + neural vocoder) -> int16 PCM on stdout, with the raw / HGA / VAD
-/ LPC / wav log taps.  Only ``vocoder_backend = net`` is ported; the
-separate-chain units, the DSP vocoder and ``segment_policy_labs`` are not.
+/ LPC / wav log taps.  Only ``vocoder_backend = net`` is ported, with any
+shipped checkpoint as ``vocoder_weights`` (bunch 1, or the bunched
+``weights/vocoder_speech_b{2,4,8}.npz``: the bunch is read from the file);
+the separate-chain units, the DSP vocoder and ``segment_policy_labs`` are
+not.
 """
 
 from __future__ import annotations

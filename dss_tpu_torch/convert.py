@@ -41,5 +41,12 @@ def lstm_state_dict(params: Mapping, head_name: str) -> Dict[str, torch.Tensor]:
 
 
 def vocoder_params(params: Mapping, device="cpu") -> Dict[str, torch.Tensor]:
-    """JAX vocoder parameter dict -> the port's dict of tensors."""
+    """JAX vocoder parameter dict -> the port's dict of tensors, key for
+    key and in the JAX layouts.  The dict is flat, so a bunched
+    checkpoint's extra keys (``emb_sig_l{j}``, ``emb_exc_l{j}``,
+    ``fc_out{1,2}_{w,g}_b{j}``, ``fc_out_b_b{j}``, the optional inner
+    biases ``fc_out{1,2}_b_b{j}``, ``bunch_exc_emb_b{j}``,
+    ``bunch_pred_emb_b{j}``) and an imported checkpoint's ``emb_pitch``
+    and ``fc_out{1,2}_b`` carry over like any other; ``LPCNetModel
+    .from_params`` reads the bunch from them."""
     return _load_params(dict(params), device)

@@ -32,30 +32,11 @@
 // over wh * mask; bf16 storage, the tile-sparse product (19.9% of [16 x 128] tiles kept
 // in the shipped checkpoint) and a cluster split of the recurrent matrix over several
 // SMs' shared memory are the levers for a later version.
-#include <cuda_runtime.h>
-#include <math.h>
+#include "sampler_common.cuh"
 
 namespace {
 
-constexpr int kLevels = 256;
-constexpr float kMu = 255.f;
-constexpr float kLog1pMu = 5.545177444479562f;  // log1p(255)
-
-__device__ __forceinline__ float sgn(float x) { return (float)((x > 0.f) - (x < 0.f)); }
-
-__device__ __forceinline__ int mulaw_encode(float x) {
-  x = fminf(fmaxf(x, -1.f), 1.f);
-  const float y = sgn(x) * log1pf(kMu * fabsf(x)) / kLog1pMu;
-  const float v = rintf((y + 1.f) * 0.5f * (float)(kLevels - 1));
-  return (int)fminf(fmaxf(v, 0.f), (float)(kLevels - 1));
-}
-
-__device__ __forceinline__ float mulaw_decode(int idx) {
-  const float y = (float)idx / (float)(kLevels - 1) * 2.f - 1.f;
-  return sgn(y) * (powf(1.f + kMu, fabsf(y)) - 1.f) / kMu;
-}
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+using namespace dss;
 
 struct Weights {
   const float* emb;        // [3, 256, 3*GA]: emb_{sig,pred,exc} @ gru_a_wx[embedding rows]
@@ -72,44 +53,6 @@ struct Weights {
   const float* ib_out;     // [512]: inner (pre-tanh) biases, zeros when absent
   const float* b_out;      // [256]
 };
-
-// part[g*N + c] = sum over k in group g of x[k] * W[k*N + c], for c < N (N % 4 == 0).
-// One work item is a quad of 4 adjacent columns (one 16-byte load per row, so a warp
-// reads 512 contiguous bytes) times one of G slices of the K rows: short per-thread
-// load chains, many loads in flight.
-__device__ __forceinline__ void matvec_partial(const float* x, const float* __restrict__ W,
-                                               int K, int N, int G, float* part, int tid,
-                                               int nt) {
-  const int NQ = N >> 2;
-  const int KS = (K + G - 1) / G;
-  const float4* W4 = reinterpret_cast<const float4*>(W);
-  for (int j = tid; j < NQ * G; j += nt) {
-    const int g = j / NQ;
-    const int q = j - g * NQ;
-    const int k1 = min(K, (g + 1) * KS);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int k = g * KS; k < k1; ++k) {
-      const float4 w = __ldg(W4 + (size_t)k * NQ + q);
-      const float xv = x[k];
-      acc.x = fmaf(xv, w.x, acc.x);
-      acc.y = fmaf(xv, w.y, acc.y);
-      acc.z = fmaf(xv, w.z, acc.z);
-      acc.w = fmaf(xv, w.w, acc.w);
-    }
-    reinterpret_cast<float4*>(part + (size_t)g * N)[q] = acc;
-  }
-}
-
-__device__ __forceinline__ float reduce_part(const float* part, int G, int N, int c) {
-  float acc = 0.f;
-  for (int g = 0; g < G; ++g) acc += part[g * N + c];
-  return acc;
-}
-
-// One block size: __launch_bounds__ caps the build at 64 registers per thread, which
-// is what lets 1024 threads launch (96 registers refuse with cudaError 701).
-constexpr int kThreads = 1024;
 
 __global__ void __launch_bounds__(kThreads) lpcnet_sampler_kernel(
     const float* __restrict__ cond, const float* __restrict__ lpc,
@@ -234,11 +177,7 @@ __global__ void __launch_bounds__(kThreads) lpcnet_sampler_kernel(
         float v = greedy ? logit
                          : logit * tmp + noise[((size_t)(t * F + i) * B + b) * kLevels + tid];
         int ix = tid;
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ov = __shfl_down_sync(0xffffffffu, v, off);
-          const int oi = __shfl_down_sync(0xffffffffu, ix, off);
-          if (ov > v || (ov == v && oi < ix)) { v = ov; ix = oi; }
-        }
+        warp_argmax(v, ix);
         if ((tid & 31) == 0) { s_redv[tid >> 5] = v; s_redi[tid >> 5] = ix; }
       }
       __syncthreads();
@@ -298,7 +237,7 @@ extern "C" int dss_lpcnet_sampler(
     int T, int F, int B, int GA, int GB, int CD, int P, void* stream) {
   if (GA % 4 != 0 || GB % 4 != 0) return (int)cudaErrorInvalidValue;
   const Plan p = plan(GA, GB, CD, P);
-  if (p.smem > 232448) return (int)cudaErrorInvalidValue;
+  if (p.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (p.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         lpcnet_sampler_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);

@@ -99,6 +99,9 @@ def library() -> ctypes.CDLL:
             lib.dss_log_power.restype = _I
             lib.dss_lpcnet_sampler.argtypes = [_P] * 26 + [_I] * 7 + [_P]
             lib.dss_lpcnet_sampler.restype = _I
+            lib.dss_lpcnet_sampler_bunched.argtypes = (
+                [_P] * 27 + [_I] * 8 + [_P])
+            lib.dss_lpcnet_sampler_bunched.restype = _I
             _lib = lib
         return _lib
 

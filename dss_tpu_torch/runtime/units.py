@@ -37,10 +37,9 @@ from ..models.lstm import seeded_init
 from ..models.torch_port import load_checkpoint
 from ..ops.hga import HighGammaExtractor
 from ..ops.ringbuffer import SpeechSegmentHistory, VoiceActivityDetectionSmoothing
-from ..ops.sampler import prepare_sampler_weights
 from ..vocoder.lpcnet import _load_params, _sparse_pattern_of
 from ..vocoder.net import COND_BLOCK, FRAME_SIZE, LPCNetModel, \
-    net_synthesize_frames, net_vocoder_init
+    net_synthesize_frames, net_vocoder_init, sampler_weights_for
 from .graph import InputStream, OutputStream, Settings, Unit, coalescing, \
     publisher, subscriber
 from .messages import ClosedLoopMessage, TimeSeriesMessage
@@ -435,10 +434,12 @@ class FusedDecoderVocoder(Unit):
                                  True, "regressor", self._device)
         self._voc_params = _load_params(s.vocoder_weights, self._device)
         self._voc_model = LPCNetModel.from_params(self._voc_params)
-        self._sampler_w = prepare_sampler_weights(self._voc_params)
+        self._sampler_w = sampler_weights_for(self._voc_model,
+                                              self._voc_params)
         _pattern, kept = _sparse_pattern_of(self._voc_params)
-        logger.info(f"vocoder GRU-A mask keeps {kept:.1%} of [16 x 128] "
-                    f"tiles (this sampler kernel runs the dense product)")
+        logger.info(f"vocoder bunch {self._voc_model.bunch}; GRU-A mask "
+                    f"keeps {kept:.1%} of [16 x 128] tiles (the sampler "
+                    f"kernels run the dense product)")
         self._voc_state = net_vocoder_init(self._voc_model, batch=1,
                                            device=self._device)
         self._chunk = COND_BLOCK

@@ -1,5 +1,21 @@
-"""Checkpoint helpers of the vocoder API (counterpart of the parts of
-dss_tpu/vocoder/lpcnet.py the online word path uses)."""
+"""Public vocoder API (counterpart of dss_tpu/vocoder/lpcnet.py).
+
+* ``LPCNet`` — one stream with the reference binding's frame API:
+  ``synthesize(features[20]) -> int16[160]``, ``synthesize_frames``,
+  ``reset_decoder``, ``warm``;
+* ``BatchedLPCNet`` — N streams advanced together, one sampler block per
+  stream;
+* ``LPCFeatureFile`` — iterator over LPCNet ``.f32`` feature dumps.
+
+Only ``backend="net"`` (the neural sample-rate network) is ported, and it
+needs ``weights`` (an ``.npz`` path or a dict of arrays; see
+``packaged_weights`` in this package): the bunch is read from the
+checkpoint, so bunched checkpoints load like any other.  ``backend="dsp"``
+raises ``NotImplementedError`` until vocoder/dsp.py is ported (ROADMAP.md,
+queue 1).  There is one sampler per device, so the JAX package's
+``use_pallas`` switch has no counterpart.  Both classes run on the card
+unless ``device`` says otherwise.
+"""
 
 from __future__ import annotations
 
@@ -9,7 +25,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..ops.sampler import tile_sparse_pattern
+from ..device import resolve_device
+from ..ops import sampler as _sampler  # the module: see vocoder/net.py
+from .lpc import FRAME_SIZE, NB_FEATURES
+from .net import LPCNetModel, net_synthesize_frames, net_vocoder_init, \
+    sampler_weights_for
 
 
 def _load_params(weights, device) -> Optional[Dict[str, torch.Tensor]]:
@@ -29,4 +49,141 @@ def _sparse_pattern_of(params):
     [16 x 128] tiles, or (None, 1.0) when the mask is dense or absent."""
     if params is None or "gru_a_mask" not in params:
         return None, 1.0
-    return tile_sparse_pattern(params["gru_a_mask"].detach().cpu().numpy())
+    return _sampler.tile_sparse_pattern(
+        params["gru_a_mask"].detach().cpu().numpy())
+
+
+def _to_int16(pcm: torch.Tensor) -> np.ndarray:
+    """Float PCM in [-1, 1] -> int16 by scale, clip and truncation (the
+    reference's conversion), converted on the tensor's device."""
+    return torch.clamp(pcm * 32767.0, -32768, 32767).to(torch.int16) \
+        .cpu().numpy()
+
+
+class _NetVocoder:
+    """What the two public classes share: checkpoint, model, prepared
+    sampler weights, carried state and the synthesis call."""
+
+    def __init__(self, batch: int, backend: str, weights,
+                 model: Optional[LPCNetModel], seed: int,
+                 temperature_scale: float, quiet_sharpen: bool, device):
+        if backend not in ("dsp", "net"):
+            raise ValueError(f"Unknown vocoder backend: {backend}")
+        if backend == "dsp":
+            raise NotImplementedError(
+                "backend='dsp': the source-filter vocoder (vocoder/dsp.py) "
+                "is not ported yet (ROADMAP.md, queue 1); use backend='net'")
+        if weights is None:
+            raise ValueError(
+                "backend='net' needs weights: an .npz path or a dict of "
+                "arrays, e.g. dss_tpu_torch.vocoder.packaged_weights()")
+        self.backend = backend
+        self.batch = batch
+        self.device = resolve_device(device)
+        # Multiplies the pitch-correlation-derived sharpening; 1.0 = default.
+        self.temperature_scale = float(temperature_scale)
+        # Energy-gated quiet-frame sharpening (vocoder/net.py QUIET_C0);
+        # off by default for offline scoring.
+        self.quiet_sharpen = bool(quiet_sharpen)
+        self._seed = seed
+        self._params = _load_params(weights, self.device)
+        self._model = model if model is not None \
+            else LPCNetModel.from_params(self._params)
+        self._sampler_w = sampler_weights_for(self._model, self._params)
+        self._state = self._fresh_state()
+
+    def _fresh_state(self):
+        return net_vocoder_init(self._model, batch=self.batch,
+                                seed=self._seed, device=self.device)
+
+    def _run(self, state, features: np.ndarray):
+        """features [batch, T, 20] -> (float PCM [batch, T*160], state)."""
+        feats = torch.as_tensor(np.asarray(features, np.float32)).to(
+            self.device)
+        return net_synthesize_frames(
+            self._model, self._params, state, feats,
+            temperature_scale=self.temperature_scale,
+            quiet_sharpen=self.quiet_sharpen,
+            sampler_weights=self._sampler_w)
+
+
+class LPCNet(_NetVocoder):
+    """Single-stream vocoder with the reference's frame API."""
+
+    LPCNET_FRAME_SIZE = FRAME_SIZE
+
+    def __init__(self, backend: str = "net", weights=None,
+                 model: Optional[LPCNetModel] = None, seed: int = 0,
+                 temperature_scale: float = 1.0,
+                 quiet_sharpen: bool = False, device=None):
+        super().__init__(1, backend, weights, model, seed, temperature_scale,
+                         quiet_sharpen, device)
+
+    def reset_decoder(self) -> None:
+        self._state = self._fresh_state()
+
+    def synthesize(self, features: np.ndarray) -> np.ndarray:
+        """features [20] float32 -> int16 [160] (10 ms at 16 kHz)."""
+        return self.synthesize_frames(
+            np.asarray(features, np.float32).reshape(1, NB_FEATURES))
+
+    def synthesize_frames(self, features: np.ndarray) -> np.ndarray:
+        """features [T, 20] -> int16 [T*160]."""
+        pcm, self._state = self._run(
+            self._state, np.asarray(features, np.float32)[None])
+        return _to_int16(pcm[0])
+
+    def warm(self, n_frames: int) -> None:
+        """Run an ``n_frames`` synthesis on a throwaway state (builds and
+        loads the kernel, fills the device's caches) without touching the
+        decoder state."""
+        pcm, _ = self._run(self._fresh_state(),
+                           np.zeros((1, n_frames, NB_FEATURES), np.float32))
+        pcm.cpu()
+
+
+class BatchedLPCNet(_NetVocoder):
+    """N-stream parallel vocoder: one call advances all streams, each on
+    its own thread block of the sampler kernel."""
+
+    def __init__(self, batch: int, backend: str = "net", weights=None,
+                 model: Optional[LPCNetModel] = None, seed: int = 0,
+                 temperature_scale: float = 1.0,
+                 quiet_sharpen: bool = False, device=None):
+        super().__init__(batch, backend, weights, model, seed,
+                         temperature_scale, quiet_sharpen, device)
+
+    def reset(self) -> None:
+        self._state = self._fresh_state()
+
+    def synthesize_frames(self, features: np.ndarray) -> np.ndarray:
+        """features [N, T, 20] -> int16 [N, T*160]."""
+        features = np.asarray(features, np.float32)
+        if features.shape[0] != self.batch:
+            raise ValueError(f"expected {self.batch} streams, got "
+                             f"{features.shape[0]}")
+        pcm, self._state = self._run(self._state, features)
+        return _to_int16(pcm)
+
+
+class LPCFeatureFile:
+    """Iterate 20-of-36 features from an LPCNet ``.f32`` feature dump."""
+
+    def __init__(self, filename: str, loop: bool = False,
+                 nb_total_features: int = 36):
+        raw = np.fromfile(filename, dtype=np.float32)
+        self.features = raw.reshape((-1, nb_total_features))
+        self.index = 0
+        self.loop = loop
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> np.ndarray:
+        if self.index >= len(self.features):
+            raise StopIteration
+        features = self.features[self.index]
+        self.index += 1
+        if self.index == len(self.features) and self.loop:
+            self.index = 0
+        return features[:NB_FEATURES]

@@ -1,4 +1,4 @@
-"""Neural autoregressive LPCNet vocoder, bunch 1 (counterpart of
+"""Neural autoregressive LPCNet vocoder (counterpart of
 dss_tpu/vocoder/net.py).
 
 * frame-rate network: two causal 3-tap convs + two dense layers (tanh)
@@ -7,11 +7,16 @@ dss_tpu/vocoder/net.py).
   sample, LPC prediction, last excitation), GRU-A (reset-after, masked
   recurrent matrix), GRU-B, dual tanh heads over 256 mu-law levels, and
   Gumbel-max sampling; the excitation plus the LPC prediction is the next
-  sample.
+  sample;
+* at bunch S > 1 (the b2/b4/b8 checkpoints) the two GRUs step once per S
+  samples: the step sees the last S samples and S excitations through
+  per-lag embedding tables and emits S excitations through per-sub-sample
+  heads, each after the first corrected by [256, 256] embeddings of the
+  previous excitation of the bunch and of its own LPC prediction.
 
 Parameters stay a dict of tensors in the JAX package's layouts ([in, out]
 matrices), so checkpoints and the tests carry over unchanged.  The sample
-loop runs in the sampler kernel (ops/sampler.py) in fixed 50-frame blocks.
+loop runs in the sampler kernels (ops/sampler.py) in fixed 50-frame blocks.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import numpy as np
 import torch
 
 from ..device import device_constant, resolve_device
-from ..ops.sampler import prepare_sampler_weights, sampler_frames
+# The module, not its names: ops/sampler.py imports vocoder/mulaw.py, so
+# either of the two may be half-imported when this line runs.
+from ..ops import sampler as _sampler
 from .lpc import FRAME_SIZE, LPC_ORDER, NB_BANDS, NB_FEATURES, PREEMPH, \
     bands_from_cepstrum, lpc_from_bands
 from .mulaw import MULAW_LEVELS, mulaw_decode, mulaw_encode
@@ -54,46 +61,60 @@ Params = Dict[str, torch.Tensor]
 
 
 class LPCNetModel:
-    """Hyperparameters + functional network pieces (bunch 1)."""
+    """Hyperparameters + functional network pieces.  ``bunch`` is the
+    number of samples per sample-rate-network step; it must divide the
+    160-sample frame."""
 
     def __init__(self, gru_a_units: int = GRU_A_UNITS,
                  gru_b_units: int = GRU_B_UNITS, cond_dim: int = COND_DIM,
-                 embed_dim: int = EMBED_DIM):
+                 embed_dim: int = EMBED_DIM, bunch: int = 1):
+        if FRAME_SIZE % bunch or not 1 <= bunch <= LPC_ORDER:
+            raise ValueError(f"bunch {bunch} must divide the frame and lie "
+                             f"in 1..{LPC_ORDER}")
         self.gru_a_units = gru_a_units
         self.gru_b_units = gru_b_units
         self.cond_dim = cond_dim
         self.embed_dim = embed_dim
+        self.bunch = bunch
 
     @classmethod
     def from_params(cls, params: Params) -> "LPCNetModel":
-        """The architecture from a checkpoint's shapes."""
-        if "emb_sig_l1" in params:
-            raise NotImplementedError(
-                "bunched (b2/b4/b8) checkpoints are not ported yet")
-        if "emb_pitch" in params:
-            raise NotImplementedError(
-                "same-padded imported checkpoints (emb_pitch) are not "
-                "ported yet")
+        """The architecture from a checkpoint's shapes (the bunch from its
+        per-lag embedding tables)."""
         return cls(gru_a_units=params["gru_a_wh"].shape[0],
                    gru_b_units=params["gru_b_wh"].shape[0],
                    cond_dim=params["fc1_w"].shape[0],
-                   embed_dim=params["emb_sig"].shape[1])
+                   embed_dim=params["emb_sig"].shape[1],
+                   bunch=_sampler.bunch_of(params))
 
     # -- frame-rate network --------------------------------------------
     def condition(self, params: Params, features: torch.Tensor
                   ) -> torch.Tensor:
         """features [B, T, 20] (callers prepend FEAT_CONTEXT frames for
-        streaming) -> cond [B, T, cond_dim], causal convs."""
+        streaming) -> cond [B, T, cond_dim].
+
+        Native checkpoints see the 20 features through causal convs.  An
+        imported xiph-LPCNet checkpoint carries an ``emb_pitch`` table: its
+        frame network sees concat(features, embed_pitch(period)) through
+        same-padded convs."""
         B, T, _ = features.shape
+        same_pad = "emb_pitch" in params
+        x = features
+        if same_pad:
+            period = torch.clamp(torch.round(50.0 * x[..., 18] + 100.0),
+                                 0, MULAW_LEVELS - 1).long()
+            x = torch.cat([x, params["emb_pitch"][period]], dim=-1)
+        left = (CONV_WIDTH - 1) // 2 if same_pad else CONV_WIDTH - 1
 
         def conv3(x, w, b):
-            pad = x.new_zeros((B, CONV_WIDTH - 1, x.shape[2]))
-            xp = torch.cat([pad, x], dim=1)
+            xp = torch.cat([x.new_zeros((B, left, x.shape[2])), x,
+                            x.new_zeros((B, CONV_WIDTH - 1 - left,
+                                         x.shape[2]))], dim=1)
             stacked = torch.cat([xp[:, i:i + T] for i in range(CONV_WIDTH)],
                                 dim=-1)
             return torch.tanh(stacked @ w + b)
 
-        h = conv3(features, params["conv1_w"], params["conv1_b"])
+        h = conv3(x, params["conv1_w"], params["conv1_b"])
         h = conv3(h, params["conv2_w"], params["conv2_b"])
         h = torch.tanh(h @ params["fc1_w"] + params["fc1_b"])
         return torch.tanh(h @ params["fc2_w"] + params["fc2_b"])
@@ -143,12 +164,78 @@ class LPCNetModel:
         sig_mem = torch.cat([sample[:, None], sig_mem[:, :-1]], dim=1)
         return (h_a, h_b, sig_mem, new_exc), (sample, new_exc, logits)
 
+    # -- bunched sample-rate network (S samples per step) ----------------
+    def sub_logits(self, params: Params, h_b: torch.Tensor, j: int
+                   ) -> torch.Tensor:
+        """Dual tanh heads of sub-sample ``j`` of the bunch."""
+        if j == 0:
+            return self.sample_logits(params, h_b)
+        b1 = params.get(f"fc_out1_b_b{j}", 0.0)
+        b2 = params.get(f"fc_out2_b_b{j}", 0.0)
+        t1 = torch.tanh(h_b @ params[f"fc_out1_w_b{j}"] + b1) \
+            * params[f"fc_out1_g_b{j}"]
+        t2 = torch.tanh(h_b @ params[f"fc_out2_w_b{j}"] + b2) \
+            * params[f"fc_out2_g_b{j}"]
+        return t1 + t2 + params[f"fc_out_b_b{j}"]
+
+    def bunch_step(self, params: Params, carry, cond, lpc, gumbel,
+                   temperature):
+        """One bunched step emitting ``self.bunch`` samples.  carry (h_a
+        [B,ga], h_b [B,gb], sig_mem [B,16], exc_hist [B,S], most recent
+        first); cond [B,cd]; lpc [B,16]; gumbel [B,S,256]; temperature
+        [B,1] (negative = greedy).
+        Returns (carry, (samples [B,S], exc [B,S]))."""
+        S = self.bunch
+        h_a, h_b, sig_mem, exc_hist = carry
+        exc_hist = exc_hist.long()
+        pred = -torch.sum(sig_mem * lpc, dim=-1)  # of the first sub-sample
+        parts = [params["emb_sig"][mulaw_encode(sig_mem[:, 0])]]
+        for j in range(1, S):
+            parts.append(params[f"emb_sig_l{j}"][mulaw_encode(sig_mem[:, j])])
+        parts.append(params["emb_pred"][mulaw_encode(pred)])
+        parts.append(params["emb_exc"][exc_hist[:, 0]])
+        for j in range(1, S):
+            parts.append(params[f"emb_exc_l{j}"][exc_hist[:, j]])
+        parts.append(cond)
+        h_a = self._gru(torch.cat(parts, dim=-1), h_a, params["gru_a_wx"],
+                        params["gru_a_wh"], params["gru_a_bx"],
+                        params["gru_a_bh"], params.get("gru_a_mask"))
+        h_b = self._gru(torch.cat([h_a, cond], dim=-1), h_b,
+                        params["gru_b_wx"], params["gru_b_wh"],
+                        params["gru_b_bx"], params["gru_b_bh"])
+        samples, excs = [], []
+        for j in range(S):
+            logits = self.sub_logits(params, h_b, j)
+            if j > 0:
+                logits = (logits
+                          + params[f"bunch_exc_emb_b{j}"][excs[-1]]
+                          + params[f"bunch_pred_emb_b{j}"][mulaw_encode(pred)])
+            scores = torch.where(temperature < 0.0, logits,
+                                 logits * temperature + gumbel[:, j])
+            new_exc = torch.argmax(scores, dim=-1)
+            sample = (pred + mulaw_decode(new_exc)).clamp(-1.0, 1.0)
+            sig_mem = torch.cat([sample[:, None], sig_mem[:, :-1]], dim=1)
+            samples.append(sample)
+            excs.append(new_exc)
+            if j + 1 < S:
+                pred = -torch.sum(sig_mem * lpc, dim=-1)
+        exc_hist = torch.stack(excs[::-1], dim=1)  # most recent first
+        return (h_a, h_b, sig_mem, exc_hist), (torch.stack(samples, dim=1),
+                                               torch.stack(excs, dim=1))
+
+
+def sampler_weights_for(model: LPCNetModel, params: Params) -> Params:
+    """The prepared weights of the sampler that ``model`` runs on."""
+    if model.bunch > 1:
+        return _sampler.prepare_bunched_sampler_weights(params)
+    return _sampler.prepare_sampler_weights(params)
+
 
 class NetVocoderState(NamedTuple):
     h_a: torch.Tensor       # [B, GRU_A]
     h_b: torch.Tensor       # [B, GRU_B]
     sig_mem: torch.Tensor   # [B, LPC_ORDER]
-    exc_idx: torch.Tensor   # [B] int64
+    exc_idx: torch.Tensor   # [B] int64; [B, S], most recent first, at bunch S
     feat_mem: torch.Tensor  # [B, FEAT_CONTEXT, 20] conv left context
     deemph: torch.Tensor    # [B]
     seed: int               # stream seed; noise is keyed by (seed, frame)
@@ -158,11 +245,12 @@ class NetVocoderState(NamedTuple):
 def net_vocoder_init(model: LPCNetModel, batch: int, seed: int = 0,
                      device=None) -> NetVocoderState:
     dev = resolve_device(device)
+    exc_shape = (batch,) if model.bunch == 1 else (batch, model.bunch)
     return NetVocoderState(
         h_a=torch.zeros((batch, model.gru_a_units), device=dev),
         h_b=torch.zeros((batch, model.gru_b_units), device=dev),
         sig_mem=torch.zeros((batch, LPC_ORDER), device=dev),
-        exc_idx=torch.full((batch,), MULAW_LEVELS // 2, dtype=torch.long,
+        exc_idx=torch.full(exc_shape, MULAW_LEVELS // 2, dtype=torch.long,
                            device=dev),
         feat_mem=torch.zeros((batch, FEAT_CONTEXT, NB_FEATURES), device=dev),
         deemph=torch.zeros((batch,), device=dev),
@@ -249,21 +337,27 @@ def net_synthesize_frames(model: LPCNetModel, params: Params,
     Synthesis runs in 50-frame blocks (a last shorter block takes any
     remainder); each block computes its conditioning, LPC, temperatures,
     noise, samples and de-emphasis at block shape, so splitting a stream
-    across calls of whole blocks gives the same audio as one call.
+    across calls of whole blocks gives the same audio as one call.  An
+    imported same-padded checkpoint (``emb_pitch``) conditions on future
+    frames, so it runs the whole call as one block and offers no chunk
+    invariance.
 
-    ``greedy`` picks the argmax per sample.  ``gumbel`` [T, 160, B, 256]
-    replaces the port's own noise (tests inject the JAX package's noise);
-    ``sampler_weights`` is ``prepare_sampler_weights(params)``, computed
-    here when not given."""
+    ``greedy`` picks the argmax per sample.  ``gumbel`` [T, 160, B, 256],
+    by position in the frame whatever the bunch, replaces the port's own
+    noise (tests inject the JAX package's noise); ``sampler_weights`` is
+    ``sampler_weights_for(model, params)``, computed here when not given."""
     B, T, _ = features.shape
     w = sampler_weights if sampler_weights is not None \
-        else prepare_sampler_weights(params)
+        else sampler_weights_for(model, params)
+    run_sampler = _sampler.sampler_frames_bunched if model.bunch > 1 \
+        else _sampler.sampler_frames
+    block = T if "emb_pitch" in params else COND_BLOCK
     feats_ctx_all = torch.cat([state.feat_mem, features], dim=1)
     carry = (state.h_a, state.h_b, state.sig_mem, state.exc_idx)
     deemph = state.deemph
     parts = []
-    for s in range(0, T, COND_BLOCK):
-        L = min(COND_BLOCK, T - s)
+    for s in range(0, T, block):
+        L = min(block, T - s)
         feats_ctx = feats_ctx_all[:, s:s + FEAT_CONTEXT + L]
         feats = feats_ctx[:, FEAT_CONTEXT:]
         cond = model.condition(params, feats_ctx)[:, FEAT_CONTEXT:]
@@ -282,7 +376,7 @@ def net_synthesize_frames(model: LPCNetModel, params: Params,
                      if gumbel is not None else
                      gumbel_noise(state.seed, state.frame_ctr + s, L, B,
                                   features.device))
-        carry, sig = sampler_frames(
+        carry, sig = run_sampler(
             w, carry, cond.transpose(0, 1).contiguous(),
             lpc.transpose(0, 1).contiguous(),
             temp.transpose(0, 1).contiguous(), noise, FRAME_SIZE)

@@ -58,6 +58,33 @@ def test_ini_with_net_backend_builds_the_fused_system(tmp_path):
     assert system.DECODE_VOCODE.SETTINGS.prewarm_frames == (50, 100)
 
 
+def test_ini_with_a_bunched_checkpoint_runs_the_bunched_vocoder(tmp_path):
+    """``vocoder_weights = weights/vocoder_speech_b8.npz`` in the INI: the
+    word unit loads the shipped b8 checkpoint, reads bunch 8 from it,
+    prepares the bunched sampler's weights and carries an [1, 8] excitation
+    history (its warm-up block runs the bunched sampler, on the CPU the
+    plain version)."""
+    weights = str(REPO / "weights" / "vocoder_speech_b8.npz")
+    s = build_settings(_ini(tmp_path, vocoder_backend="net",
+                            vocoder_weights=weights,
+                            segment_prewarm_frames="[]"),
+                       "run", device="cpu")
+    assert s.vocoder_weights == weights
+    system = Neuroprosthesis(s)
+    system.configure()
+    unit = system.DECODE_VOCODE
+    assert unit.SETTINGS.vocoder_weights == weights
+    unit.initialize()
+    try:
+        assert unit._voc_model.bunch == 8
+        assert unit._sampler_w["emb"].shape == (17, 256, 1152)
+        assert unit._sampler_w["corr"].shape == (7, 2, 256, 256)
+        assert tuple(unit._voc_state.exc_idx.shape) == (1, 8)
+        assert unit._voc_state.frame_ctr == 0
+    finally:
+        unit.shutdown()
+
+
 def test_bci2000_packet_decoder_matches_encoder(rng):
     """GenericSignal packets from the JAX package's encoder decode to the
     same [samples, channels] float64 array (float32 on the wire)."""

@@ -18,8 +18,9 @@ import torch
 from dss_tpu_torch.device import resolve_device
 from dss_tpu_torch.ops.frames import log_power_frames
 from dss_tpu_torch.ops.log_power import log_power, log_power_plain
-from dss_tpu_torch.ops.sampler import prepare_sampler_weights, \
-    sampler_frames, sampler_frames_plain
+from dss_tpu_torch.ops.sampler import prepare_bunched_sampler_weights, \
+    prepare_sampler_weights, sampler_frames, sampler_frames_bunched, \
+    sampler_frames_bunched_plain, sampler_frames_plain
 from dss_tpu_torch.vocoder import net as tnet
 from dss_tpu_torch.vocoder.lpc import bands_from_cepstrum, lpc_from_bands
 from dss_tpu_torch.vocoder.lpcnet import _load_params
@@ -50,20 +51,21 @@ def test_log_power_kernel_matches_plain(dev, rows):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
-def _flagship_inputs(dev, frames, seed=0):
-    params = _load_params(REPO / "weights" / "vocoder_speech.npz", dev)
+def _flagship_inputs(dev, frames, seed=0, name="vocoder_speech.npz",
+                     batch=1):
+    params = _load_params(REPO / "weights" / name, dev)
     model = tnet.LPCNetModel.from_params(params)
     g = torch.Generator().manual_seed(seed)
-    feats = torch.randn((1, frames, 20), generator=g) * 0.3
+    feats = torch.randn((batch, frames, 20), generator=g) * 0.3
     feats[..., 0] -= 4.0
     feats = feats.to(dev)
     cond = model.condition(params, feats)
     lpc, _ = lpc_from_bands(bands_from_cepstrum(feats[..., :18]))
     corr = torch.clamp(feats[..., 19] + 0.5, 0.0, 1.0)
     temp = (1.0 + 1.5 * corr)
-    state = tnet.net_vocoder_init(model, 1, device=dev)
+    state = tnet.net_vocoder_init(model, batch, device=dev)
     carry = (state.h_a, state.h_b, state.sig_mem, state.exc_idx)
-    return (prepare_sampler_weights(params), carry,
+    return (tnet.sampler_weights_for(model, params), carry,
             cond.transpose(0, 1).contiguous(),
             lpc.transpose(0, 1).contiguous(),
             temp.transpose(0, 1).contiguous())
@@ -101,6 +103,77 @@ def test_chunked_equals_single_shot_on_the_card(dev):
     params = _load_params(REPO / "weights" / "vocoder_speech.npz", dev)
     model = tnet.LPCNetModel.from_params(params)
     w = prepare_sampler_weights(params)
+    feats = torch.randn((1, 100, 20),
+                        generator=torch.Generator().manual_seed(2)) * 0.3
+    feats = feats.to(dev)
+    st = tnet.net_vocoder_init(model, 1, seed=3, device=dev)
+    whole, _ = tnet.net_synthesize_frames(model, params, st, feats,
+                                          sampler_weights=w)
+    p1, s1 = tnet.net_synthesize_frames(model, params, st, feats[:, :50],
+                                        sampler_weights=w)
+    p2, _ = tnet.net_synthesize_frames(model, params, s1, feats[:, 50:],
+                                       sampler_weights=w)
+    assert torch.equal(torch.cat([p1, p2], dim=1), whole)
+
+
+@pytest.mark.parametrize("bunch, batch", [(2, 1), (4, 1), (8, 1), (4, 8)])
+def test_bunched_sampler_kernel_greedy_matches_plain(dev, bunch, batch):
+    """K3 at full width on the shipped b2/b4/b8 checkpoints, greedy, two
+    frames, one stream and eight: identical excitation history, PCM within
+    1e-5, one launch counted."""
+    w, carry, cond, lpc, temp = _flagship_inputs(
+        dev, 2, name=f"vocoder_speech_b{bunch}.npz", batch=batch)
+    temp = -torch.ones_like(temp)
+    before = sampler_frames_bunched.launches
+    kc, ks = sampler_frames_bunched(w, carry, cond, lpc, temp, None)
+    torch.cuda.synchronize()
+    assert sampler_frames_bunched.launches == before + 1
+    pc, ps = sampler_frames_bunched_plain(w, carry, cond, lpc, temp, None)
+    assert tuple(kc[3].shape) == (batch, bunch)
+    assert torch.equal(kc[3], pc[3])
+    torch.testing.assert_close(ks, ps, atol=1e-5, rtol=0)
+    for a, b in zip(kc[:3], pc[:3]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("bunch, batch", [(2, 1), (4, 1), (8, 1), (4, 8)])
+def test_bunched_sampler_kernel_stochastic_matches_plain_on_same_noise(
+        dev, bunch, batch):
+    """K3 on one 50-frame block with shared noise, on each shipped bunch at
+    one stream and on b4 at eight (the offline batch): no stream may part
+    from the plain version before the first frame ends, and the RMS agree
+    within 1 dB."""
+    w, carry, cond, lpc, temp = _flagship_inputs(
+        dev, 50, seed=1, name=f"vocoder_speech_b{bunch}.npz", batch=batch)
+    noise = tnet.gumbel_noise(0, 0, 50, batch, dev)
+    _, ks = sampler_frames_bunched(w, carry, cond, lpc, temp, noise)
+    _, ps = sampler_frames_bunched_plain(w, carry, cond, lpc, temp, noise)
+    diff = ((ks - ps).abs() > 1e-5).any(dim=0)
+    first = int(torch.nonzero(diff)[0]) if bool(diff.any()) else ks.shape[1]
+    assert first >= 160
+    rms = lambda x: float(x.pow(2).mean().sqrt())  # noqa: E731
+    assert abs(20 * np.log10(rms(ks) / rms(ps))) < 1.0
+
+
+def test_bunched_sampler_kernel_refuses_what_it_does_not_take(dev):
+    """On CUDA tensors the wrapper launches or raises: a half-precision
+    weight is refused, and so is a bunch the kernel is not built for."""
+    w, carry, cond, lpc, temp = _flagship_inputs(
+        dev, 1, name="vocoder_speech_b2.npz")
+    temp = -torch.ones_like(temp)
+    with pytest.raises(TypeError):
+        sampler_frames_bunched(dict(w, wh_a=w["wh_a"].half()), carry, cond,
+                               lpc, temp, None)
+    bad = dict(w, emb=torch.cat([w["emb"], w["emb"][:2]]))  # "bunch 3"
+    with pytest.raises(ValueError):
+        sampler_frames_bunched(bad, carry, cond, lpc, temp, None)
+
+
+def test_bunched_chunked_equals_single_shot_on_the_card(dev):
+    """Through K3 (b4), two 50-frame calls equal one 100-frame call."""
+    params = _load_params(REPO / "weights" / "vocoder_speech_b4.npz", dev)
+    model = tnet.LPCNetModel.from_params(params)
+    w = prepare_bunched_sampler_weights(params)
     feats = torch.randn((1, 100, 20),
                         generator=torch.Generator().manual_seed(2)) * 0.3
     feats = feats.to(dev)

@@ -173,8 +173,10 @@ def test_slice_matches_jax_on_synthetic_session():
     np.testing.assert_allclose(pcm_t.numpy(), np.asarray(pcm_j), atol=1e-3)
 
 
-def _tiny_vocoder_npz(path):
-    """A random bunch-1 checkpoint at tiny width, made with numpy."""
+def _tiny_vocoder_npz(path, bunch=1):
+    """A random checkpoint at tiny width, made with numpy: bunch 1, or a
+    bunched one with its per-lag tables, per-sub-sample heads and
+    correction embeddings."""
     rng = np.random.default_rng(0)
     ga, gb, cd, ed = 16, 8, 8, 8
 
@@ -182,16 +184,26 @@ def _tiny_vocoder_npz(path):
         return (rng.normal(size=shape) / np.sqrt(shape[0])).astype(np.float32)
 
     z = lambda n: np.zeros(n, np.float32)  # noqa: E731
+    extra = {}
+    for j in range(1, bunch):
+        extra.update({
+            f"emb_sig_l{j}": g(256, ed), f"emb_exc_l{j}": g(256, ed),
+            f"fc_out1_w_b{j}": g(gb, 256), f"fc_out2_w_b{j}": g(gb, 256),
+            f"fc_out1_g_b{j}": np.ones(256, np.float32),
+            f"fc_out2_g_b{j}": np.ones(256, np.float32),
+            f"fc_out_b_b{j}": g(256) * 0.1,
+            f"bunch_exc_emb_b{j}": g(256, 256),
+            f"bunch_pred_emb_b{j}": g(256, 256)})
     np.savez(path, emb_sig=g(256, ed), emb_pred=g(256, ed), emb_exc=g(256, ed),
              conv1_w=g(60, cd), conv1_b=z(cd), conv2_w=g(3 * cd, cd),
              conv2_b=z(cd), fc1_w=g(cd, cd), fc1_b=z(cd), fc2_w=g(cd, cd),
-             fc2_b=z(cd), gru_a_wx=g(3 * ed + cd, 3 * ga),
+             fc2_b=z(cd), gru_a_wx=g((2 * bunch + 1) * ed + cd, 3 * ga),
              gru_a_wh=g(ga, 3 * ga), gru_a_bx=z(3 * ga), gru_a_bh=z(3 * ga),
              gru_a_mask=np.ones((ga, 3 * ga), np.float32),
              gru_b_wx=g(ga + cd, 3 * gb), gru_b_wh=g(gb, 3 * gb),
              gru_b_bx=z(3 * gb), gru_b_bh=z(3 * gb), fc_out1_w=g(gb, 256),
              fc_out2_w=g(gb, 256), fc_out1_g=np.ones(256, np.float32),
-             fc_out2_g=np.ones(256, np.float32), fc_out_b=z(256))
+             fc_out2_g=np.ones(256, np.float32), fc_out_b=z(256), **extra)
 
 
 class _Collect(ez.Unit):
@@ -219,8 +231,18 @@ def test_fused_units_run_through_the_port_graph(tmp_path):
     """PacketReplay -> FusedFrontendVad -> FusedDecoderVocoder -> sink on
     the CPU: at least one segment closes; each word's int16 PCM holds
     frames x 160 samples and equals its concatenated audio chunks."""
+    _run_fused_units_through_the_graph(tmp_path, 1)
+
+
+def test_fused_units_run_through_the_port_graph_bunched(tmp_path):
+    """The same with a bunch-4 vocoder checkpoint: the word unit reads the
+    bunch from the file and runs the bunched sampler."""
+    _run_fused_units_through_the_graph(tmp_path, 4)
+
+
+def _run_fused_units_through_the_graph(tmp_path, bunch):
     weights = tmp_path / "voc_tiny.npz"
-    _tiny_vocoder_npz(weights)
+    _tiny_vocoder_npz(weights, bunch)
     vad = tmp_path / "vad.npz"
     np.savez(vad, **_threshold_vad())
     pre, post, nb = feature_transforms(None)
@@ -268,6 +290,7 @@ def test_fused_units_run_through_the_port_graph(tmp_path):
     np.testing.assert_array_equal(np.concatenate(sink.audio),
                                   np.concatenate(sink.words))
     assert system.FRONTEND.step_ms and system.WORDS.word_ms
+    assert system.WORDS._voc_model.bunch == bunch
 
 
 def _run_word_unit(weights, nb, T, length_multiple, chunk_emission):
@@ -305,8 +328,22 @@ def test_chunked_emission_equals_single_shot(tmp_path, T, length_multiple):
     the 50-frame chunk.  Each emitted chunk holds its valid frames x 160
     samples; a chunk wholly in the repeat-pad is clamped to nothing and
     shipped only when it is the word's last (the word-complete stamp)."""
+    _check_chunked_emission(tmp_path, T, length_multiple, 1)
+
+
+@pytest.mark.parametrize("T, length_multiple, bunch",
+                         [(73, 50, 2), (30, 100, 8)])
+def test_chunked_emission_equals_single_shot_bunched(tmp_path, T,
+                                                     length_multiple, bunch):
+    """The same with bunched vocoder checkpoints (bunch 2 and 8): the
+    bunched sampler keeps the 50-frame block discipline, so chunked
+    emission equals single shot bit for bit."""
+    _check_chunked_emission(tmp_path, T, length_multiple, bunch)
+
+
+def _check_chunked_emission(tmp_path, T, length_multiple, bunch):
     weights = tmp_path / "voc_tiny.npz"
-    _tiny_vocoder_npz(weights)
+    _tiny_vocoder_npz(weights, bunch)
     nb = 64
     chunks, word, lpc = _run_word_unit(weights, nb, T, length_multiple, True)
     ref_chunks, ref_word, ref_lpc = _run_word_unit(weights, nb, T,
@@ -321,6 +358,50 @@ def test_chunked_emission_equals_single_shot(tmp_path, T, length_multiple):
     want = [v * 160 for k, v in enumerate(valid) if v or k == n_chunks - 1]
     assert [len(c) for c in chunks] == want
     np.testing.assert_array_equal(np.concatenate(chunks), word)
+
+
+def test_bunched_word_unit_matches_jax(tmp_path):
+    """The word unit with a tiny bunch-4 checkpoint against the JAX
+    package on the same segment: the unit's decoder (padded to its bucket)
+    and the JAX decoder with the same weights give features within 1e-4,
+    and the unit's vocoder (the model, parameters and sampler weights it
+    chose from the file's bunch) gives greedy PCM within 1e-3 of the JAX
+    bunched scan path over the first two frames, each side on its own
+    decoded features."""
+    weights = tmp_path / "voc_tiny_b4.npz"
+    _tiny_vocoder_npz(weights, 4)
+    nb, T = 64, 30
+    unit = FusedDecoderVocoder(FusedDecoderVocoderSettings(
+        path_to_model_weights=None, model=BidirectionalSpeechSynthesisModel,
+        params=dict(nb_layer=2, nb_hidden_units=16, nb_electrodes=nb),
+        vocoder_weights=str(weights), prewarm_frames=(), device="cpu"))
+    unit.initialize()
+    try:
+        assert unit._voc_model.bunch == 4
+        seg = np.random.default_rng(3).normal(size=(T, nb)).astype(np.float32)
+        pred_t, feats_t = unit._padded_features(seg, T)
+        state = tnet.net_vocoder_init(unit._voc_model, 1, device="cpu")
+        assert tuple(state.exc_idx.shape) == (1, 4)
+        pcm_t, _ = tnet.net_synthesize_frames(
+            unit._voc_model, unit._voc_params, state, feats_t[:, :2],
+            greedy=True, sampler_weights=unit._sampler_w)
+        sd = {k: v.numpy() for k, v in unit._model.state_dict().items()}
+    finally:
+        unit.shutdown()
+
+    jdec = JDec(2, 16, nb)
+    jdp = from_torch_state_dict(sd, 2, True, "regressor")
+    feats_j = np.asarray(jdec.apply(jdp, jnp.asarray(seg[None]))[0])
+    np.testing.assert_allclose(pred_t.numpy(), feats_j, atol=1e-4)
+    with np.load(weights) as f:
+        vp = {k: jnp.asarray(f[k]) for k in f.files}
+    jm = jnet.LPCNetModel.from_params(vp)
+    assert jm.bunch == 4
+    pcm_j, _ = jnet.net_synthesize_frames(
+        jm, vp, jnet.net_vocoder_init(jm, 1), jnp.asarray(feats_j[:, :2]),
+        greedy=True)
+    assert pcm_t.shape == (1, 320)
+    np.testing.assert_allclose(pcm_t.numpy(), np.asarray(pcm_j), atol=1e-3)
 
 
 def test_package_imports_no_jax_and_no_dss_tpu():
