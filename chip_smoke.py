@@ -5,15 +5,17 @@
 1. Builds the port's CUDA kernels (dss_tpu_torch/csrc) with nvcc.
 2. Holds each kernel against its plain PyTorch version on the card:
    log power (K1) at the packet shapes and at [20000, 64], atol 1e-5;
-   the bunch-1 LPCNet sampler (K2) greedy over two full-width frames
-   (identical excitations, atol 1e-5), and stochastic over one 50-frame
-   block on the same noise (first divergence after the first frame, RMS
-   within 1 dB); the bunched sampler (K3) greedy over two full-width
+   the LPCNet sampler kernel at bunch 1 (K2: ``sampler_frames``) greedy
+   over two full-width frames (identical excitations, atol 1e-5), and
+   stochastic over one 50-frame block on the same noise (first divergence
+   after the first frame, RMS within 1 dB); the same kernel at bunch 2, 4
+   and 8 (K3: ``sampler_frames_bunched``) greedy over two full-width
    frames of the shipped b2/b4/b8 checkpoints at one stream and of b4 at
    eight (identical excitations, atol 1e-5), and stochastic over one
    50-frame block of each of those four cases (K2's rule), timed per block.
-   A sampler's bound counts the gathered tables at the distinct rows the
-   block's data reads.
+   Through the kernel a 100-frame call must equal two 50-frame calls bit
+   for bit, at bunch 1 and bunch 8.  A sampler's bound counts the gathered
+   tables at the distinct rows the block's data reads.
 3. Drives the port's online word path twice, with the shipped
    weights/vocoder_speech.npz (bunch 1, K2) and with
    weights/vocoder_speech_b8.npz (bunch 8, K3): a 16 s, 129-channel
@@ -177,8 +179,8 @@ def main(report_path=None) -> int:
     from dss_tpu_torch.ops import _cuda
     from dss_tpu_torch.ops.filters import sosfilt_scan
     from dss_tpu_torch.ops.log_power import log_power, log_power_plain
-    from dss_tpu_torch.ops.sampler import prepare_sampler_weights, \
-        sampler_frames, sampler_frames_bunched, \
+    from dss_tpu_torch.ops.sampler import kernel_plan, \
+        prepare_sampler_weights, sampler_frames, sampler_frames_bunched, \
         sampler_frames_bunched_plain, sampler_frames_plain, \
         tile_sparse_pattern
     from dss_tpu_torch.vocoder import net as tnet
@@ -259,15 +261,16 @@ def main(report_path=None) -> int:
         correction tables) only the distinct rows that this call's data
         reads (``gathered_rows`` on its output ``sig``).  Operations: T*F/S
         recurrences plus S heads each.  GRU-A's recurrent product counts
-        only the mask's kept [16 x 128] tiles (what the TPU kernels read),
-        though these kernels run it dense."""
+        only the mask's kept [16 x 128] tiles, which is what the kernel
+        reads."""
         GA, GB, CD = model.gru_a_units, model.gru_b_units, model.cond_dim
         T = cond.shape[0]
         n = T * 160 * cond.shape[1]
         _, kept = tile_sparse_pattern(params["gru_a_mask"].cpu().numpy())
         emb_rows, corr_rows = gathered_rows(S, carry, lpc, sig)
-        dense = sum(t.numel() for k, t in w.items()
-                    if k not in ("emb", "corr"))
+        dense = sum(w[k].numel() for k in (
+            "wx_a_cond", "bx_a", "wh_a", "bh_a", "wx_b", "bx_b", "wh_b",
+            "bh_b", "w_out", "g_out", "ib_out", "b_out"))
         wbytes = (dense - (1.0 - kept) * w["wh_a"].numel()
                   + emb_rows * w["emb"].shape[-1]
                   + corr_rows * MULAW_LEVELS) * 4
@@ -317,8 +320,10 @@ def main(report_path=None) -> int:
         n = 50 * 160
         bound, bound_by, kept, rows = sampler_bound(
             model, params, w, 1, carry, cond, lpc, temp, noise, ks)
+        plan = kernel_plan(w, 1, cond.shape[2], lpc.shape[2])
         report["kernels"]["lpcnet_sampler_b1"].update(
-            first_divergence=first, rms_db=db, ms=ms, plain_ms=plain_ms,
+            plan=plan, first_divergence=first, rms_db=db, ms=ms,
+            plain_ms=plain_ms,
             bound_ms=bound, gru_a_tiles_kept=kept, bound_by=bound_by,
             bound_terms=rows,
             us_per_sample=ms * 1e3 / n, real_time_factor=ms / 500.0)
@@ -326,7 +331,7 @@ def main(report_path=None) -> int:
               f"{rms_k:.4f} vs {rms_p:.4f} ({db:+.3f} dB), {ms:.1f} ms per "
               f"8000-sample block, real-time factor {ms / 500.0:.3f} (plain "
               f"{plain_ms:.0f} ms); bound {bound:.4f} ms ({bound_by}) with "
-              f"{kept:.1%} of GRU-A's tiles kept; {rows}")
+              f"{kept:.1%} of GRU-A's tiles kept; {rows}; {plan}")
         if first < 160 or not abs(db) < 1.0:
             raise AssertionError("K2 stochastic out of tolerance")
     ph.run("K2 sampler stochastic vs plain (50 frames)", k2_stochastic)
@@ -383,6 +388,7 @@ def main(report_path=None) -> int:
             db = 20 * np.log10(rms_k / rms_p)
             n = 8000 * B
             cell = dict(
+                plan=kernel_plan(wS, S, cond.shape[2], lpc.shape[2]),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 bound_terms=rows, gru_a_tiles_kept=kept,
                 us_per_sample=ms * 1e3 / n, real_time_factor=ms / 500.0,
@@ -394,7 +400,8 @@ def main(report_path=None) -> int:
             print(f"K3 b{S} B={B}: {ms:.1f} ms per 50-frame block "
                   f"({ms * 1e3 / n:.2f} us per sample, real-time factor "
                   f"{ms / 500.0:.3f}); bound {bound:.4f} ms ({bound_by}) "
-                  f"with {kept:.1%} of GRU-A's tiles kept; {rows}")
+                  f"with {kept:.1%} of GRU-A's tiles kept; {rows}; "
+                  f"{cell['plan']}")
             print(f"K3 b{S} B={B} stochastic: first divergence at sample "
                   f"{first}, RMS {rms_k:.4f} vs {rms_p:.4f} ({db:+.3f} dB); "
                   f"plain {plain_ms:.0f} ms")
@@ -405,6 +412,30 @@ def main(report_path=None) -> int:
         k3.update(k3["by_bunch"][8])
     ph.run("K3 bunched sampler per 50-frame block, stochastic vs plain "
            "(b2/b4/b8 at one stream, b4 at eight)", k3_block)
+
+    def chunk_invariance():
+        """Through the kernel, one 100-frame call equals two 50-frame calls
+        bit for bit (audio and carried state), at bunch 1 and bunch 8."""
+        for name, (m, p, wS) in (("b1", (model, params, w)),
+                                 ("b8", bunched[8])):
+            feats = torch.randn((1, 100, 20), generator=torch.Generator()
+                                .manual_seed(2)).to(dev) * 0.3
+            st = tnet.net_vocoder_init(m, 1, seed=3, device=dev)
+            whole, s_whole = tnet.net_synthesize_frames(
+                m, p, st, feats, sampler_weights=wS)
+            p1, s1 = tnet.net_synthesize_frames(m, p, st, feats[:, :50],
+                                                sampler_weights=wS)
+            p2, s2 = tnet.net_synthesize_frames(m, p, s1, feats[:, 50:],
+                                                sampler_weights=wS)
+            torch.cuda.synchronize()
+            same = torch.equal(torch.cat([p1, p2], dim=1), whole) and \
+                torch.equal(s2.h_a, s_whole.h_a) and \
+                torch.equal(s2.exc_idx, s_whole.exc_idx)
+            report.setdefault("chunk_invariance", {})[name] = same
+            if not same or not bool(whole.abs().max() > 0):
+                raise AssertionError(f"chunked != single-shot at {name}")
+    ph.run("chunk invariance on the card (100 frames == 2 x 50, b1 and b8)",
+           chunk_invariance)
 
     # ---- sosfilt_scan per packet (eager torch) --------------------------------
     def iir():
@@ -637,14 +668,16 @@ def main(report_path=None) -> int:
     meta = {
         "log_power": ("cuda", "dss_tpu_torch/csrc/log_power.cu",
                       "dss_tpu/ops/pallas/log_power.py:32"),
-        "lpcnet_sampler_b1": ("cuda", "dss_tpu_torch/csrc/lpcnet_sampler.cu",
-                              "dss_tpu/ops/pallas/sampler.py:292"),
+        "lpcnet_sampler_b1": (
+            "cuda", "dss_tpu_torch/csrc/lpcnet_sampler_bunched.cu",
+            "dss_tpu/ops/pallas/sampler.py:292"),
         "lpcnet_sampler_bunched": (
             "cuda", "dss_tpu_torch/csrc/lpcnet_sampler_bunched.cu",
             "dss_tpu/ops/pallas/sampler.py:827"),
     }
-    # Each kernel's launches on the main path that runs it: K2 on the
-    # bunch-1 word path, K1 and K3 on the bunch-8 word path.
+    # Each kernel's launches on the main path that runs it: the sampler at
+    # bunch 1 (K2) on the bunch-1 word path, K1 and the sampler at bunch 8
+    # (K3) on the bunch-8 word path.
     path_of = {"log_power": "b8", "lpcnet_sampler_b1": "b1",
                "lpcnet_sampler_bunched": "b8"}
     kernels = []
@@ -657,6 +690,10 @@ def main(report_path=None) -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None})
+        if "plan" in k:  # the sampler: blocks per stream, weights on chip
+            kernels[-1].update(
+                cluster=k["plan"]["cluster"],
+                resident_bytes_per_block=k["plan"]["resident_bytes"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

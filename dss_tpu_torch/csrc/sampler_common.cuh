@@ -1,6 +1,6 @@
-// Device helpers shared by the LPCNet sampler kernels (lpcnet_sampler.cu, bunch 1;
-// lpcnet_sampler_bunched.cu, bunch 2/4/8): mu-law companding, the split-K
-// matrix-vector product, and the exact lowest-index argmax over a warp.
+// Device helpers of the LPCNet sampler kernel (lpcnet_sampler_bunched.cu, bunch
+// 1/2/4/8): mu-law companding and the split-K matrix-vector product of its
+// per-frame projections.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,7 +37,8 @@ __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x
 // part[g*N + c] = sum over k in group g of x[k] * W[k*N + c], for c < N (N % 4 == 0).
 // One work item is a quad of 4 adjacent columns (one 16-byte load per row, so a warp
 // reads 512 contiguous bytes) times one of G slices of the K rows: short per-thread
-// load chains, many loads in flight.
+// load chains, many loads in flight.  W may lie in shared or in global memory: the loads
+// are plain generic loads.
 __device__ __forceinline__ void matvec_partial(const float* x, const float* __restrict__ W,
                                                int K, int N, int G, float* part, int tid,
                                                int nt) {
@@ -51,7 +52,7 @@ __device__ __forceinline__ void matvec_partial(const float* x, const float* __re
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
     for (int k = g * KS; k < k1; ++k) {
-      const float4 w = __ldg(W4 + (size_t)k * NQ + q);
+      const float4 w = W4[(size_t)k * NQ + q];
       const float xv = x[k];
       acc.x = fmaf(xv, w.x, acc.x);
       acc.y = fmaf(xv, w.y, acc.y);
@@ -66,16 +67,6 @@ __device__ __forceinline__ float reduce_part(const float* part, int G, int N, in
   float acc = 0.f;
   for (int g = 0; g < G; ++g) acc += part[g * N + c];
   return acc;
-}
-
-// Argmax of (v, ix) over the 32 lanes of a warp; among equal values the lowest index
-// wins.  Lane 0 holds the result.
-__device__ __forceinline__ void warp_argmax(float& v, int& ix) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, ix, off);
-    if (ov > v || (ov == v && oi < ix)) { v = ov; ix = oi; }
-  }
 }
 
 }  // namespace dss

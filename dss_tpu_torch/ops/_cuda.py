@@ -5,7 +5,9 @@ source, all started together — and linked into one shared library with a
 plain C interface, loaded through ``ctypes``.  The build happens at first
 use, into ``dss_tpu_torch/_build/<hash of the sources>/`` (listed in
 ``.gitignore``), so a fresh checkout builds itself.  Importing this module
-builds nothing.
+builds nothing.  A measuring tool may ask for a second build with
+preprocessor ``defines`` (the sampler's ``DSS_SAMPLER_TRACE`` and
+``DSS_SAMPLER_CLUSTER=N``); the port itself uses the plain one only.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -27,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,19 +48,19 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(defines: Sequence[str]) -> str:
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
     for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernels (if this source set was not built yet) and
-    return the library's path.  ptxas's register and shared-memory report
-    for each kernel lands in ``build.log`` beside it."""
-    out_dir = BUILD_ROOT / _digest()
+def build(defines: Sequence[str] = ()) -> Path:
+    """Compile the kernels (if this source set was not built yet with these
+    ``defines``) and return the library's path.  ptxas's register and
+    shared-memory report for each kernel lands in ``build.log`` beside it."""
+    out_dir = BUILD_ROOT / _digest(defines)
     lib_path = out_dir / "libdss_kernels.so"
     if lib_path.exists():
         return lib_path
@@ -68,7 +70,8 @@ def build() -> Path:
     for src in _sources():
         obj = out_dir / (src.stem + ".o")
         procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *NVCC_FLAGS, *[f"-D{d}" for d in defines], "-c", str(src),
+             "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     log = []
     failed = []
@@ -88,22 +91,22 @@ def build() -> Path:
     return lib_path
 
 
-def library() -> ctypes.CDLL:
+def library(defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    global _lib
+    key = tuple(defines)
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if key not in _libs:
+            lib = ctypes.CDLL(str(build(key)))
             lib.dss_log_power.argtypes = [_P, _P, _I, _I, _I, _I,
                                           ctypes.c_float, _P]
             lib.dss_log_power.restype = _I
-            lib.dss_lpcnet_sampler.argtypes = [_P] * 26 + [_I] * 7 + [_P]
-            lib.dss_lpcnet_sampler.restype = _I
             lib.dss_lpcnet_sampler_bunched.argtypes = (
-                [_P] * 27 + [_I] * 8 + [_P])
+                [_P] * 31 + [_I] * 11 + [_P])
             lib.dss_lpcnet_sampler_bunched.restype = _I
-            _lib = lib
-        return _lib
+            lib.dss_lpcnet_sampler_plan.argtypes = [_I] * 9 + [_P]
+            lib.dss_lpcnet_sampler_plan.restype = _I
+            _libs[key] = lib
+        return _libs[key]
 
 
 def check(rc: int, name: str) -> None:

@@ -439,7 +439,7 @@ class FusedDecoderVocoder(Unit):
         _pattern, kept = _sparse_pattern_of(self._voc_params)
         logger.info(f"vocoder bunch {self._voc_model.bunch}; GRU-A mask "
                     f"keeps {kept:.1%} of [16 x 128] tiles (the sampler "
-                    f"kernels run the dense product)")
+                    f"kernel reads only those)")
         self._voc_state = net_vocoder_init(self._voc_model, batch=1,
                                            device=self._device)
         self._chunk = COND_BLOCK

@@ -2,7 +2,7 @@
 dss_tpu/vocoder/): the 20-feature frame interface (18 Bark-scale cepstra,
 pitch period, pitch correlation) producing 160 samples of 16 kHz int16 PCM
 per 10 ms frame, through the neural autoregressive vocoder (net.py) whose
-sample loop runs in the CUDA sampler kernels (ops/sampler.py).
+sample loop runs in the CUDA sampler kernel (ops/sampler.py).
 
 Not ported yet: the source-filter DSP vocoder (dsp.py), the feature
 encoder (features.py) and checkpoint interop (interop.py).

@@ -16,7 +16,7 @@ dss_tpu/vocoder/net.py).
 
 Parameters stay a dict of tensors in the JAX package's layouts ([in, out]
 matrices), so checkpoints and the tests carry over unchanged.  The sample
-loop runs in the sampler kernels (ops/sampler.py) in fixed 50-frame blocks.
+loop runs in the sampler kernel (ops/sampler.py) in fixed 50-frame blocks.
 """
 
 from __future__ import annotations

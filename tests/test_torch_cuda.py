@@ -18,8 +18,8 @@ import torch
 from dss_tpu_torch.device import resolve_device
 from dss_tpu_torch.ops.frames import log_power_frames
 from dss_tpu_torch.ops.log_power import log_power, log_power_plain
-from dss_tpu_torch.ops.sampler import prepare_bunched_sampler_weights, \
-    prepare_sampler_weights, sampler_frames, sampler_frames_bunched, \
+from dss_tpu_torch.ops.sampler import kernel_plan, \
+    prepare_bunched_sampler_weights, prepare_sampler_weights, sampler_frames, sampler_frames_bunched, \
     sampler_frames_bunched_plain, sampler_frames_plain
 from dss_tpu_torch.vocoder import net as tnet
 from dss_tpu_torch.vocoder.lpc import bands_from_cepstrum, lpc_from_bands
@@ -71,22 +71,118 @@ def _flagship_inputs(dev, frames, seed=0, name="vocoder_speech.npz",
             temp.transpose(0, 1).contiguous())
 
 
-def test_sampler_kernel_greedy_matches_plain(dev):
-    """K2 at full width, greedy, two frames: identical excitations, PCM
-    within 1e-5."""
-    w, carry, cond, lpc, temp = _flagship_inputs(dev, 2)
+@pytest.mark.parametrize("batch", [1, 8])
+def test_sampler_kernel_greedy_matches_plain(dev, batch):
+    """The kernel at S = 1 and full width, greedy, two frames, one stream
+    and eight: identical excitations, PCM and state within 1e-5, one launch
+    counted."""
+    w, carry, cond, lpc, temp = _flagship_inputs(dev, 2, batch=batch)
     temp = -torch.ones_like(temp)
+    before = sampler_frames.launches
     kc, ks = sampler_frames(w, carry, cond, lpc, temp, None)
     pc, ps = sampler_frames_plain(w, carry, cond, lpc, temp, None)
     torch.cuda.synchronize()
+    assert sampler_frames.launches == before + 1
+    assert tuple(kc[3].shape) == (batch,)
     assert torch.equal(kc[3], pc[3])
     torch.testing.assert_close(ks, ps, atol=1e-5, rtol=0)
+    for a, b in zip(kc[:3], pc[:3]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("bunch", [1, 8])
+def test_sampler_kernel_plan_keeps_shipped_weights_resident(dev, bunch):
+    """For a shipped checkpoint every split weight stays in the cluster's
+    shared memory, and the card runs at least one such cluster."""
+    name = "vocoder_speech.npz" if bunch == 1 else \
+        f"vocoder_speech_b{bunch}.npz"
+    w, _, cond, lpc, _ = _flagship_inputs(dev, 1, name=name)
+    plan = kernel_plan(w, bunch, cond.shape[2], lpc.shape[2])
+    assert plan["gru_a_tiles_resident"] and plan["gru_b_wx_resident"] \
+        and plan["heads_resident"]
+    assert plan["cluster"] == 8 and plan["max_active_clusters"] >= 1
+    assert plan["resident_bytes"] < plan["smem_bytes"] <= 232448
+
+
+def _narrow_model(dev, bunch, ga, gb, masked):
+    """A seeded model at widths that the [16 x 128] tile does not divide
+    (every ragged tile kept), or a divisible one with a random tile mask."""
+    model = tnet.LPCNetModel(bunch=bunch, gru_a_units=ga, gru_b_units=gb,
+                             cond_dim=12, embed_dim=8)
+    rng = np.random.default_rng(ga + bunch)
+    L = 256
+
+    def n(*shape, s=0.3):
+        return (rng.normal(size=shape) * s).astype(np.float32)
+
+    E, nE = 8, 2 * bunch + 1
+    # At the full width a random recurrent matrix of scale 0.2 has a gain of
+    # 4 per step: the state would amplify last-bit differences of the sums
+    # past any tolerance.  Unit gain there.
+    s_wh = 0.2 if ga <= 128 else 1.0 / np.sqrt(ga)
+    p = {"emb_sig": n(L, E), "emb_pred": n(L, E), "emb_exc": n(L, E),
+         "gru_a_wx": n(nE * E + 12, 3 * ga), "gru_a_bx": n(3 * ga),
+         "gru_a_wh": n(ga, 3 * ga, s=s_wh), "gru_a_bh": n(3 * ga),
+         "gru_b_wx": n(ga + 12, 3 * gb), "gru_b_bx": n(3 * gb),
+         "gru_b_wh": n(gb, 3 * gb), "gru_b_bh": n(3 * gb)}
+    for j in range(bunch):
+        sfx = "" if j == 0 else f"_b{j}"
+        for h in (1, 2):
+            p[f"fc_out{h}_w{sfx}"] = n(gb, L)
+            p[f"fc_out{h}_g{sfx}"] = 1.0 + n(L, s=0.2)
+        p[f"fc_out_b{sfx}"] = n(L, s=0.2)
+        if j:
+            p[f"emb_sig_l{j}"], p[f"emb_exc_l{j}"] = n(L, E), n(L, E)
+            p[f"bunch_exc_emb_b{j}"] = n(L, L, s=0.1)
+            p[f"bunch_pred_emb_b{j}"] = n(L, L, s=0.1)
+    if masked:
+        keep = rng.random((ga // 16, 3 * ga // 128)) < 0.4
+        keep[0] = True
+        p["gru_a_mask"] = np.repeat(np.repeat(keep, 16, 0), 128, 1).astype(
+            np.float32)
+    p = {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
+    w = tnet.sampler_weights_for(model, p)
+    B, T = 2, 3
+    carry = (torch.from_numpy(n(B, ga)).to(dev),
+             torch.from_numpy(n(B, gb)).to(dev),
+             torch.from_numpy(n(B, 16, s=0.1)).to(dev),
+             torch.from_numpy(rng.integers(0, L, (B, bunch))).to(dev))
+    if bunch == 1:
+        carry = carry[:3] + (carry[3][:, 0],)
+    return (w, carry, torch.from_numpy(n(T, B, 12, s=0.5)).to(dev),
+            torch.from_numpy(n(T, B, 16, s=0.05)).to(dev))
+
+
+@pytest.mark.parametrize("bunch, ga, gb, masked", [
+    (1, 20, 8, False), (2, 40, 12, False), (4, 72, 8, False),
+    (8, 20, 8, False), (1, 128, 16, True), (2, 128, 16, True),
+    (1, 384, 32, False), (8, 384, 32, False)])
+def test_sampler_kernel_on_narrow_ragged_models(dev, bunch, ga, gb, masked):
+    """Widths that 16 and 128 do not divide, fewer units than blocks (some
+    blocks own none), a random tile mask at a small divisible width, and
+    the full width unpruned (the recurrent matrix does not fit and is read
+    from global memory): the one code path, greedy over three 16-sample
+    frames from a random carry, two streams.  Identical excitations, PCM
+    and state within 1e-5."""
+    w, carry, cond, lpc = _narrow_model(dev, bunch, ga, gb, masked)
+    if ga == 384:
+        assert not kernel_plan(w, bunch, 12, 16, 16)["gru_a_tiles_resident"]
+    temp = -torch.ones(cond.shape[:2], device=dev)
+    run, plain = (sampler_frames, sampler_frames_plain) if bunch == 1 else \
+        (sampler_frames_bunched, sampler_frames_bunched_plain)
+    kc, ks = run(w, carry, cond, lpc, temp, None, 16)
+    pc, ps = plain(w, carry, cond, lpc, temp, None, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(kc[3], pc[3])
+    torch.testing.assert_close(ks, ps, atol=1e-5, rtol=0)
+    for a, b in zip(kc[:3], pc[:3]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
 def test_sampler_kernel_stochastic_matches_plain_on_same_noise(dev):
-    """K2 on one 50-frame block with shared noise: the outputs may part
-    only after the first frame (last-bit differences feed back), and their
-    RMS agree within 1 dB."""
+    """The kernel at S = 1 on one 50-frame block with shared noise: the
+    outputs may part only after the first frame (last-bit differences feed
+    back), and their RMS agree within 1 dB."""
     w, carry, cond, lpc, temp = _flagship_inputs(dev, 50, seed=1)
     noise = tnet.gumbel_noise(0, 0, 50, 1, dev)
     _, ks = sampler_frames(w, carry, cond, lpc, temp, noise)
@@ -99,7 +195,8 @@ def test_sampler_kernel_stochastic_matches_plain_on_same_noise(dev):
 
 
 def test_chunked_equals_single_shot_on_the_card(dev):
-    """Through the kernel, two 50-frame calls equal one 100-frame call."""
+    """Through the kernel at S = 1, two 50-frame calls equal one 100-frame
+    call bit for bit."""
     params = _load_params(REPO / "weights" / "vocoder_speech.npz", dev)
     model = tnet.LPCNetModel.from_params(params)
     w = prepare_sampler_weights(params)
@@ -169,9 +266,12 @@ def test_bunched_sampler_kernel_refuses_what_it_does_not_take(dev):
         sampler_frames_bunched(bad, carry, cond, lpc, temp, None)
 
 
-def test_bunched_chunked_equals_single_shot_on_the_card(dev):
-    """Through K3 (b4), two 50-frame calls equal one 100-frame call."""
-    params = _load_params(REPO / "weights" / "vocoder_speech_b4.npz", dev)
+@pytest.mark.parametrize("bunch", [4, 8])
+def test_bunched_chunked_equals_single_shot_on_the_card(dev, bunch):
+    """Through the kernel at S = 4 and 8, two 50-frame calls equal one
+    100-frame call bit for bit."""
+    params = _load_params(REPO / "weights" / f"vocoder_speech_b{bunch}.npz",
+                          dev)
     model = tnet.LPCNetModel.from_params(params)
     w = prepare_bunched_sampler_weights(params)
     feats = torch.randn((1, 100, 20),
