@@ -5,6 +5,20 @@
 1. Builds the port's CUDA kernels (dss_tpu_torch/csrc) with nvcc.
 2. Holds each kernel against its plain PyTorch version on the card:
    log power (K1) at the packet shapes and at [20000, 64], atol 1e-5;
+   the packet front-end kernel (``filter_log_power``: 16-section IIR
+   cascade + warm-start framing + log power in one launch) with the
+   deployed filters at 64 channels, for a 40-sample packet with its
+   40-row carry, 2 / 4 / 8 coalesced packets, a 10-sample packet, a short
+   first packet with a 20-row zero carry and a 20000-sample trial with
+   none (section states and carried rows bit for bit, features atol 1e-5),
+   then over a 16 s, 129 -> 64-channel session packet by packet through
+   ``HighGammaExtractor.packet_step`` against the same through the plain
+   version; it is timed at T = 40 and 320 by ``torch.profiler`` kernel
+   records and by events over back-to-back wrapper calls, beside the same
+   kernel with the whole cascade on one warp (the design it is measured
+   against, which must give the same bits) and an empty kernel launched
+   through the same ctypes path (the launch floor), with the SM clock
+   sampled by nvidia-smi;
    the LPCNet sampler kernel at bunch 1 (K2: ``sampler_frames``) greedy
    over two full-width frames (identical excitations, atol 1e-5), and
    stochastic over one 50-frame block on the same noise (first divergence
@@ -24,7 +38,11 @@
    port's graph, with a threshold-VAD checkpoint and a seeded 2 x 100
    decoder; every burst must close a segment and each word's int16 PCM
    must hold frames x 160 finite samples.  The kernels' launch counts are
-   zeroed just before each run and read just after it.
+   zeroed just before each run and read just after it: the front-end
+   kernel must launch once per packet call (and once per warmed call
+   size), and the eager cascade must not run on a CUDA tensor.  After each
+   run the packet step is split (host clock, synchronized): copy +
+   pre-transforms, the front-end kernel, post-transform + nVAD + read-back.
    Then the offline entries: dss_tpu_torch.apps.synthesize on a seeded
    [300, 20] feature file with the b4 checkpoint (a wav of 48000 int16
    samples), and BatchedLPCNet(batch=8).
@@ -53,6 +71,7 @@ sys.path.insert(0, str(ROOT))
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, data sheet
+H100_BOOST_HZ = 1.98e9       # SM boost clock, H100 SXM data sheet
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -68,6 +87,27 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_ms(fn, reps: int, key: str):
+    """(device ms per kernel record whose name holds ``key``, records) over
+    ``reps`` calls of ``fn`` under torch.profiler; (None, 0) when the
+    profiler shows no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if key in e.key:
+            t = getattr(e, "device_time_total", None)
+            total += t if t is not None else getattr(e, "cuda_time_total", 0)
+            count += e.count
+    return (total / count / 1e3 if count and total > 0 else None), count
 
 
 def session(seconds=16.0, bursts=((2.0, 3.5), (7.0, 8.5), (12.0, 13.5)),
@@ -177,6 +217,11 @@ def main(report_path=None) -> int:
         return 2
     from dss_tpu_torch.device import resolve_device
     from dss_tpu_torch.ops import _cuda
+    from dss_tpu_torch.ops import filter_log_power as flp_mod
+    from dss_tpu_torch.ops import filters as filters_mod
+    from dss_tpu_torch.ops import hga as hga_mod
+    from dss_tpu_torch.ops.filter_log_power import filter_log_power, \
+        filter_log_power_plain
     from dss_tpu_torch.ops.filters import sosfilt_scan
     from dss_tpu_torch.ops.log_power import log_power, log_power_plain
     from dss_tpu_torch.ops.sampler import kernel_plan, \
@@ -233,6 +278,168 @@ def main(report_path=None) -> int:
             ms_20000x64=ms_big,
             bound_ms_20000x64=(20000 + 1996) * 64 * 4 / H100_BYTES_PER_S * 1e3)
     ph.run("K1 log power vs plain", k1)
+
+    # ---- the packet front-end kernel (K1 fused with the cascade) -------------
+    from dss_tpu_torch.apps.decode_online import feature_transforms
+    from dss_tpu_torch.ops.hga import HighGammaExtractor
+    fe_ex = HighGammaExtractor(fs=1000, nb_electrodes=64, device=dev)
+    fe = report["kernels"]["filter_log_power"] = {"cases": {}}
+
+    def fe_inputs(T, R, seed):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn((T, 64), generator=g).to(dev)
+        carry = torch.randn((R, 64), generator=g).to(dev) if R != 20 \
+            else torch.zeros((R, 64), device=dev)  # a short first packet
+        return fe_ex.sos, x, fe_ex.zi, carry
+
+    def one_warp(sos, x, zi, carry):
+        """The kernel with the whole cascade on one warp (no pipeline): the
+        design it is measured against, through its own entry point."""
+        T, C = x.shape
+        n = carry.shape[0] + T
+        out = (torch.empty(((n - 50) // 10 + 1 if n >= 50 else 0, C),
+                           device=dev), torch.empty_like(zi),
+               torch.empty((40, C), device=dev))
+        _cuda.check(_cuda.library().dss_filter_log_power_one_warp(
+            x.data_ptr(), sos.data_ptr(), zi.data_ptr(), carry.data_ptr(),
+            *(t.data_ptr() for t in out), T, C, sos.shape[0], carry.shape[0],
+            10, 50, 0.01, torch.cuda.current_stream().cuda_stream),
+            "one warp")
+        return out
+
+    def fe_check():
+        worst = 0.0
+        for T, R in ((40, 40), (80, 40), (160, 40), (320, 40), (10, 40),
+                     (30, 20), (20000, 0)):
+            sos, x, zi, carry = fe_inputs(T, R, T + R)
+            got = filter_log_power(sos, x, zi, carry, 10, 50)
+            want = filter_log_power_plain(sos, x, zi, carry, 10, 50)
+            ow = one_warp(sos, x, zi, carry)
+            torch.cuda.synchronize()
+            err = float((got[0] - want[0]).abs().max()) if got[0].numel() \
+                else 0.0
+            exact = torch.equal(got[1], want[1]) and \
+                torch.equal(got[2], want[2])
+            if not (torch.equal(ow[1], want[1]) and torch.equal(ow[2], want[2])
+                    and torch.equal(ow[0], got[0])):
+                raise AssertionError(f"one-warp design T={T} R={R}")
+            fe["cases"][f"T{T}_R{R}"] = dict(
+                windows=got[0].shape[0], max_abs_err=err,
+                state_and_carry_bit_equal=exact)
+            print(f"front-end kernel T={T} R={R}: {got[0].shape[0]} windows, "
+                  f"max err {err:.3g}, zf/carry bit-equal {exact}")
+            if got[0].shape != want[0].shape or not exact or not err <= 1e-5:
+                raise AssertionError(f"front-end kernel T={T} R={R}")
+            worst = max(worst, err)
+        # A 16 s session packet by packet through packet_step, the kernel
+        # against the plain version, both on the card.
+        raw = torch.as_tensor(session().astype(np.float32))
+        runs = []
+        for fn in (filter_log_power, filter_log_power_plain):
+            hga_mod.filter_log_power = fn
+            try:
+                pre, post, nb = feature_transforms(None)
+                ex = HighGammaExtractor(fs=1000, nb_electrodes=nb,
+                                        pre_transforms=pre,
+                                        post_transforms=post, device=dev)
+                st, frames = ex.init_state(), []
+                for k in range(0, raw.shape[0], 40):
+                    f, st = ex.packet_step(st, raw[k:k + 40].to(dev))
+                    frames.append(f)
+                runs.append((torch.cat(frames), st))
+            finally:
+                hga_mod.filter_log_power = filter_log_power
+        (fk, sk), (fp, sp) = runs
+        torch.cuda.synchronize()
+        err = float((fk - fp).abs().max())
+        exact = torch.equal(sk.zi, sp.zi) and \
+            torch.equal(sk.remainder, sp.remainder)
+        fe["session_16s"] = dict(frames=fk.shape[0], max_abs_err=err,
+                                 final_state_bit_equal=exact)
+        print(f"front-end session, 16 s in 40-sample packets: {fk.shape[0]} "
+              f"frames, max err {err:.3g}, final zi/remainder bit-equal "
+              f"{exact}")
+        if fk.shape != fp.shape or not exact or not err <= 1e-5:
+            raise AssertionError("front-end session: kernel != plain")
+        fe["max_abs_err"] = max(worst, err)
+    ph.run("front-end kernel vs plain (cascade + framing + log power)",
+           fe_check)
+
+    def fe_timing():
+        lib = _cuda.library()
+        stream = torch.cuda.current_stream().cuda_stream
+        x0 = torch.zeros((40, 64), device=dev)
+        empty = lambda: _cuda.check(  # noqa: E731
+            lib.dss_empty_launch(64, stream), "empty")
+        floor_prof, _ = profiled_ms(empty, 200, "empty_kernel")
+        floor_ev = cuda_ms(empty, 200)
+        fe["launch_floor_ms"] = dict(profiler=floor_prof, events=floor_ev)
+        print(f"launch floor (empty kernel, {x0.shape[1] // 32} blocks of 32, "
+              f"ctypes): profiler {floor_prof} ms, events {floor_ev:.4f} ms")
+        clocks = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
+        for T in (40, 320):
+            sos, x, zi, carry = fe_inputs(T, 40, 1)
+            run = lambda: filter_log_power(  # noqa: E731
+                sos, x, zi, carry, 10, 50)
+            plain = lambda: filter_log_power_plain(  # noqa: E731
+                sos, x, zi, carry, 10, 50)
+            dev_ms, records = profiled_ms(run, 200, "filter_log_power_kernel")
+            ev_ms = cuda_ms(run, 200)
+            ow_ms, _ = profiled_ms(lambda: one_warp(sos, x, zi, carry), 200,
+                                   "filter_log_power_kernel")
+            ow_ev = cuda_ms(lambda: one_warp(sos, x, zi, carry), 200)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                run()
+            host_ms = (time.perf_counter() - t0) * 1e3 / 200
+            torch.cuda.synchronize()
+            plain_ev = cuda_ms(plain, 10)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                plain()
+            torch.cuda.synchronize()
+            plain_host = (time.perf_counter() - t0) * 1e3 / 10
+            S, W, N = sos.shape[0], (40 + T - 50) // 10 + 1, 40 + T
+            nbytes = 4 * (T * 64 + sos.numel() + 2 * zi.numel() + 40 * 64
+                          + W * 64 + 40 * 64)
+            flops = 64 * (9 * S * T + 2 * N + W * (5 + 3))
+            t_b, t_f = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+            chain_ms = 9 * S * T / H100_BOOST_HZ * 1e3
+            fe[f"T{T}"] = dict(
+                profiler_ms=dev_ms, profiler_records=records, events_ms=ev_ms,
+                one_warp_profiler_ms=ow_ms, one_warp_events_ms=ow_ev,
+                host_enqueue_ms=host_ms, plain_events_ms=plain_ev,
+                plain_host_ms=plain_host, bound_ms=max(t_b, t_f) * 1e3,
+                bound_by="bytes" if t_b > t_f else "operations",
+                bytes=nbytes, flops=flops, chain_estimate_ms=chain_ms)
+            print(f"front-end kernel [{T}, 64] + 40 carried rows: profiler "
+                  f"{dev_ms} ms over {records} records, events {ev_ms:.4f} "
+                  f"ms, host enqueue {host_ms:.4f} ms per call; plain "
+                  f"{plain_ev:.3f} ms (events) / {plain_host:.3f} ms (host); "
+                  f"bound {max(t_b, t_f) * 1e3:.2e} ms "
+                  f"({'bytes' if t_b > t_f else 'operations'}), chain "
+                  f"estimate {chain_ms:.4f} ms; one-warp design: profiler "
+                  f"{ow_ms} ms, events {ow_ev:.4f} ms")
+        clocks.terminate()
+        mhz = [int(v) for v in clocks.communicate()[0].split()
+               if v.strip().isdigit()]
+        fe["sm_clock_mhz"] = dict(min=min(mhz, default=None),
+                                  median=pct(mhz, 50),
+                                  max=max(mhz, default=None))
+        print(f"SM clock during the timing (nvidia-smi every 50 ms): "
+              f"{fe['sm_clock_mhz']} MHz")
+        t40 = fe["T40"]
+        fe.update(ms=t40["profiler_ms"] if t40["profiler_ms"] is not None
+                  else t40["events_ms"],
+                  ms_from="profiler" if t40["profiler_ms"] is not None
+                  else "events",
+                  plain_ms=t40["plain_events_ms"], bound_ms=t40["bound_ms"],
+                  bound_by=t40["bound_by"])
+    ph.run("front-end kernel timing (profiler, events, launch floor)",
+           fe_timing)
 
     # ---- K2: sampler -------------------------------------------------------
     params = _load_params(ROOT / "weights" / "vocoder_speech.npz", dev)
@@ -455,6 +662,7 @@ def main(report_path=None) -> int:
 
     # ---- the main path -----------------------------------------------------
     counters = {"log_power": log_power,
+                "filter_log_power": filter_log_power,
                 "lpcnet_sampler_b1": sampler_frames,
                 "lpcnet_sampler_bunched": sampler_frames_bunched}
 
@@ -537,12 +745,26 @@ def main(report_path=None) -> int:
                             (self.WORDS.LPC, self.SINK.LPC))
 
             system = System()
-            zero_counts()
-            t0 = time.perf_counter()
-            ez.run_system(system)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = read_counts()
+            eager_on_card = []
+
+            def guard(sos, x, zi):
+                if x.is_cuda:
+                    eager_on_card.append(tuple(x.shape))
+                    raise AssertionError("eager cascade on the card")
+                return sosfilt_scan(sos, x, zi)
+            mods = (hga_mod, filters_mod, flp_mod)
+            for m in mods:
+                m.sosfilt_scan = guard
+            try:
+                zero_counts()
+                t0 = time.perf_counter()
+                ez.run_system(system)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+            finally:
+                for m in mods:
+                    m.sosfilt_scan = sosfilt_scan
         sink = system.SINK
         mp = report["main_path"][key] = {"vocoder_weights": weights_name}
         mp.update(
@@ -588,16 +810,64 @@ def main(report_path=None) -> int:
             split["vocode_chunk_ms"].append((t2 - t1) * 1e3)
         mp["word_head_split"] = split
         print(f"word head split (steady state, ms): {split}")
+        # Steady-state split of the packet step (its own stream-less copy of
+        # FusedFrontendVad._packet_path, synchronized after each part).
+        fe_unit = system.FRONTEND
+        ex, vad = fe_unit._extractor, fe_unit._model
+        raw = session().astype(np.float32)
+        st, vs = ex.init_state(), vad.create_new_initial_state(1)
+        parts = {"copy_pre_ms": [], "front_end_kernel_ms": [],
+                 "post_vad_readback_ms": []}
+        with torch.no_grad():
+            for i in range(110):
+                packet = raw[i * 40:(i + 1) * 40]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                data = ex.pre_transform(torch.as_tensor(packet).to(dev))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                feats, zi, rem = filter_log_power(ex.sos, data, st.zi,
+                                                  st.remainder, 10, 50)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                feats = ex.post_transform(feats)
+                logits, vs = vad(feats[None], vs)
+                labels = torch.argmax(logits, dim=-1)[0]
+                torch.cat([feats, labels[:, None].to(feats.dtype)],
+                          dim=1).cpu()
+                t3 = time.perf_counter()
+                st = type(st)(zi=zi, remainder=rem)
+                if i >= 10:
+                    parts["copy_pre_ms"].append((t1 - t0) * 1e3)
+                    parts["front_end_kernel_ms"].append((t2 - t1) * 1e3)
+                    parts["post_vad_readback_ms"].append((t3 - t2) * 1e3)
+        mp["packet_step_split_p50"] = {k: pct(v, 50) for k, v in parts.items()}
+        mp["packet_step_split_p95"] = {k: pct(v, 95) for k, v in parts.items()}
+        print(f"packet step split (steady state, 100 packets, host clock "
+              f"with a synchronize after each part): p50 "
+              f"{mp['packet_step_split_p50']}, p95 "
+              f"{mp['packet_step_split_p95']}")
+        warm = len(fe_unit._sizes)
+        mp["front_end_expected_launches"] = mp["packet_calls"] + warm
+        if eager_on_card:
+            raise AssertionError(f"the eager cascade ran on the card "
+                                 f"{len(eager_on_card)} time(s)")
+        if launches["filter_log_power"] != mp["packet_calls"] + warm:
+            raise AssertionError(
+                f"front-end kernel: {launches['filter_log_power']} launches "
+                f"for {mp['packet_calls']} packet calls + {warm} warm-up "
+                f"calls")
         for name in expect:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the "
                                      f"main path with {weights_name}")
     ph.run("main path, bunch 1 (frontend+nVAD -> decoder+vocoder)",
            lambda: main_path("b1", "vocoder_speech.npz",
-                             ("log_power", "lpcnet_sampler_b1")))
+                             ("filter_log_power", "lpcnet_sampler_b1")))
     ph.run("main path, bunch 8 (frontend+nVAD -> decoder+vocoder)",
            lambda: main_path("b8", "vocoder_speech_b8.npz",
-                             ("log_power", "lpcnet_sampler_bunched")))
+                             ("filter_log_power",
+                              "lpcnet_sampler_bunched")))
 
     # ---- the offline entries ------------------------------------------------
     def offline():
@@ -668,6 +938,8 @@ def main(report_path=None) -> int:
     meta = {
         "log_power": ("cuda", "dss_tpu_torch/csrc/log_power.cu",
                       "dss_tpu/ops/pallas/log_power.py:32"),
+        "filter_log_power": ("cuda", "dss_tpu_torch/csrc/filter_log_power.cu",
+                             "dss_tpu/ops/pallas/log_power.py:32"),
         "lpcnet_sampler_b1": (
             "cuda", "dss_tpu_torch/csrc/lpcnet_sampler_bunched.cu",
             "dss_tpu/ops/pallas/sampler.py:292"),
@@ -675,11 +947,13 @@ def main(report_path=None) -> int:
             "cuda", "dss_tpu_torch/csrc/lpcnet_sampler_bunched.cu",
             "dss_tpu/ops/pallas/sampler.py:827"),
     }
-    # Each kernel's launches on the main path that runs it: the sampler at
-    # bunch 1 (K2) on the bunch-1 word path, K1 and the sampler at bunch 8
-    # (K3) on the bunch-8 word path.
-    path_of = {"log_power": "b8", "lpcnet_sampler_b1": "b1",
-               "lpcnet_sampler_bunched": "b8"}
+    # Each kernel's launches on the main path that runs it: the front-end
+    # kernel and the sampler at bunch 1 (K2) on the bunch-1 word path, the
+    # sampler at bunch 8 (K3) on the bunch-8 word path.  The standalone
+    # log-power kernel is on neither path since the front-end kernel took
+    # its place; its count is read on the bunch-8 path (0).
+    path_of = {"log_power": "b8", "filter_log_power": "b1",
+               "lpcnet_sampler_b1": "b1", "lpcnet_sampler_bunched": "b8"}
     kernels = []
     for name, (route, src, replaces) in meta.items():
         k = report["kernels"][name]

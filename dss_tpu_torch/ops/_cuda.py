@@ -100,6 +100,12 @@ def library(defines: Sequence[str] = ()) -> ctypes.CDLL:
             lib.dss_log_power.argtypes = [_P, _P, _I, _I, _I, _I,
                                           ctypes.c_float, _P]
             lib.dss_log_power.restype = _I
+            for fn in (lib.dss_filter_log_power,
+                       lib.dss_filter_log_power_one_warp):
+                fn.argtypes = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
+                fn.restype = _I
+            lib.dss_empty_launch.argtypes = [_I, _P]
+            lib.dss_empty_launch.restype = _I
             lib.dss_lpcnet_sampler_bunched.argtypes = (
                 [_P] * 31 + [_I] * 11 + [_P])
             lib.dss_lpcnet_sampler_bunched.restype = _I

@@ -76,6 +76,21 @@ class StreamingFramer:
         self.remainder = out[-self.overlap:, :]
         return out
 
+    def carry(self, nb_rows: int, like: torch.Tensor) -> torch.Tensor:
+        """The rows ``insert`` would put before the next block of
+        ``nb_rows`` rows, as a float32 tensor on ``like``'s device: none for
+        a first block of at least one frame, zeros up to one frame for a
+        short first block, the remainder after that.  Clears the first-frame
+        flag; the caller stores the block's last ``overlap`` rows back into
+        ``remainder``."""
+        if self.first_frame:
+            self.first_frame = False
+            pad = max(self.frame_length_in_samples - nb_rows, 0)
+            return torch.zeros((pad, like.shape[1]), dtype=torch.float32,
+                               device=like.device)
+        return torch.as_tensor(self.remainder, dtype=torch.float32,
+                               device=like.device)
+
 
 def framer_step(carry: torch.Tensor, packet: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

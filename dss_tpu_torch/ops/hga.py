@@ -2,22 +2,27 @@
 (counterpart of dss_tpu/ops/hga.py).
 
 The band-pass (70-170 Hz) and band-stop (118-122 Hz) filters run as one
-16-section cascade.  Its initial state is each filter's own ``sosfilt_zi``
-concatenated along the section axis — not the ``zi`` of the combined
-cascade — because the reference runs the two filters back to back with
-independently initialized states.
+16-section cascade.  Where the window geometry is uniform (hop dividing the
+window, both whole samples: always at 50 ms / 10 ms) the cascade, the
+framing and the log power are one call of ``filter_log_power`` (one kernel
+launch on the card); any other geometry takes the eager cascade and
+``log_power_frames``.  The cascade's initial state is each filter's own
+``sosfilt_zi`` concatenated along the section axis — not the ``zi`` of the
+combined cascade — because the reference runs the two filters back to back
+with independently initialized states.
 """
 
 from __future__ import annotations
 
 import logging
 from functools import reduce
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from .filter_log_power import filter_log_power
 from .filters import design_bandpass, design_bandstop, sosfilt_scan, sosfilt_zi
 from .frames import StreamingFramer, first_packet_warmup_frames, \
     framer_step, log_power_frames
@@ -31,6 +36,19 @@ def _compose(functions: Transforms) -> Optional[Callable]:
     if not functions:
         return None
     return reduce(lambda f, g: lambda x: g(f(x)), functions, lambda x: x)
+
+
+def _uniform_geometry(fs: int, window_length: float, window_shift: float,
+                      overlap: int) -> Optional[Tuple[int, int]]:
+    """(hop, length) in samples when both are whole samples, the hop divides
+    the window and the framer carries length - hop rows; else None."""
+    hop = int(round(window_shift * fs))
+    length = int(round(window_length * fs))
+    whole = abs(hop - window_shift * fs) < 1e-9 and \
+        abs(length - window_length * fs) < 1e-9
+    if whole and hop > 0 and length % hop == 0 and overlap == length - hop:
+        return hop, length
+    return None
 
 
 class FrontendState(NamedTuple):
@@ -75,6 +93,8 @@ class HighGammaExtractor:
         self.framebuffer = StreamingFramer(
             frame_length=window_length, frame_shift=window_shift, fs=fs,
             nb_channels=nb_electrodes)
+        self._uniform = _uniform_geometry(fs, window_length, window_shift,
+                                          self.framebuffer.overlap)
         self.reset()
 
     # -- reference-compatible stateful API --------------------------------
@@ -89,12 +109,17 @@ class HighGammaExtractor:
         x = torch.as_tensor(np.asarray(data, np.float32), device=self.device)
         if self.pre_transform is not None:
             x = self.pre_transform(x)
-        filtered, self.zi = sosfilt_scan(self.sos, x, self.zi)
-        block = torch.as_tensor(
-            self.framebuffer.insert(filtered.cpu().numpy()), dtype=torch.float32,
-            device=self.device)
-        features = log_power_frames(block, self.fs, self.window_length,
-                                    self.window_shift)
+        if self._uniform is not None:
+            carry = self.framebuffer.carry(x.shape[0], x)
+            features, self.zi, self.framebuffer.remainder = filter_log_power(
+                self.sos, x, self.zi, carry, *self._uniform)
+        else:
+            filtered, self.zi = sosfilt_scan(self.sos, x, self.zi)
+            block = torch.as_tensor(
+                self.framebuffer.insert(filtered.cpu().numpy()),
+                dtype=torch.float32, device=self.device)
+            features = log_power_frames(block, self.fs, self.window_length,
+                                        self.window_shift)
         if self.post_transform is not None:
             features = self.post_transform(features)
         return features.cpu().numpy()
@@ -120,10 +145,14 @@ class HighGammaExtractor:
         data = packet.to(self.device, torch.float32)
         if self.pre_transform is not None:
             data = self.pre_transform(data)
-        filtered, zi = sosfilt_scan(self.sos, data, state.zi)
-        block, remainder = framer_step(state.remainder, filtered)
-        features = log_power_frames(block, self.fs, self.window_length,
-                                    self.window_shift)
+        if self._uniform is not None:
+            features, zi, remainder = filter_log_power(
+                self.sos, data, state.zi, state.remainder, *self._uniform)
+        else:
+            filtered, zi = sosfilt_scan(self.sos, data, state.zi)
+            block, remainder = framer_step(state.remainder, filtered)
+            features = log_power_frames(block, self.fs, self.window_length,
+                                        self.window_shift)
         if self.post_transform is not None:
             features = self.post_transform(features)
         return features, FrontendState(zi=zi, remainder=remainder)

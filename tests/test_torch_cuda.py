@@ -16,7 +16,11 @@ import pytest
 import torch
 
 from dss_tpu_torch.device import resolve_device
+from dss_tpu_torch.ops import hga as thga
+from dss_tpu_torch.ops.filter_log_power import filter_log_power, \
+    filter_log_power_plain
 from dss_tpu_torch.ops.frames import log_power_frames
+from dss_tpu_torch.ops.hga import HighGammaExtractor
 from dss_tpu_torch.ops.log_power import log_power, log_power_plain
 from dss_tpu_torch.ops.sampler import kernel_plan, \
     prepare_bunched_sampler_weights, prepare_sampler_weights, sampler_frames, sampler_frames_bunched, \
@@ -49,6 +53,88 @@ def test_log_power_kernel_matches_plain(dev, rows):
     W = got.shape[0]
     want = log_power_plain(x.to(dev), 10, 50, W)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+# (T, R) of chip_smoke.py's front-end phase: a packet with the steady carry,
+# 2 / 4 / 8 coalesced packets, a packet shorter than the overlap, a short
+# first packet zero-padded to one frame, and an offline trial (R = 0).
+FRONT_END_CASES = [(40, 40), (80, 40), (160, 40), (320, 40), (10, 40),
+                   (30, 20), (20000, 0)]
+
+
+def _front_end_inputs(dev, T, R, C=64, sections=16):
+    ex = HighGammaExtractor(fs=1000, nb_electrodes=C, device=dev)
+    g = torch.Generator().manual_seed(T + R)
+    x = torch.randn((T, C), generator=g).to(dev)
+    carry = torch.randn((R, C), generator=g).to(dev)
+    zi = ex.zi + 0.1 * torch.randn(ex.zi.shape, generator=g).to(dev)
+    return ex.sos[:sections].contiguous(), x, zi[:sections].contiguous(), \
+        carry
+
+
+@pytest.mark.parametrize("T, R", FRONT_END_CASES)
+def test_front_end_kernel_matches_plain(dev, T, R):
+    """The fused front-end kernel at the deployed cascade and width: zf and
+    the carried rows bit for bit (both round once per operation in the same
+    order), features within 1e-5 (window sums in another order); one launch
+    counted."""
+    sos, x, zi, carry = _front_end_inputs(dev, T, R)
+    before = filter_log_power.launches
+    feats, zf, carry_out = filter_log_power(sos, x, zi, carry, 10, 50)
+    torch.cuda.synchronize()
+    assert filter_log_power.launches == before + 1
+    want = filter_log_power_plain(sos, x, zi, carry, 10, 50)
+    assert feats.shape == want[0].shape
+    assert torch.equal(zf, want[1])
+    assert torch.equal(carry_out, want[2])
+    torch.testing.assert_close(feats, want[0], atol=1e-5, rtol=0)
+
+
+def test_front_end_kernel_generic_section_count(dev):
+    """The kernel's generic path (section count other than 16: the
+    band-pass alone, 8 sections) at a width that 32 does not divide."""
+    sos, x, zi, carry = _front_end_inputs(dev, 120, 40, C=70, sections=8)
+    feats, zf, carry_out = filter_log_power(sos, x, zi, carry, 10, 50)
+    want = filter_log_power_plain(sos, x, zi, carry, 10, 50)
+    assert torch.equal(zf, want[1])
+    assert torch.equal(carry_out, want[2])
+    torch.testing.assert_close(feats, want[0], atol=1e-5, rtol=0)
+
+
+def test_front_end_session_state_carried_by_the_kernel(dev, monkeypatch):
+    """A 4 s, 129 -> 64-channel session packet by packet through
+    HighGammaExtractor.packet_step with the deployed transforms, the state
+    carried by the kernel alone, against the same through the plain
+    version on the card: every frame within 1e-5, final state identical."""
+    from dss_tpu_torch.apps.decode_online import feature_transforms
+    raw = torch.randn((4000, 129), generator=torch.Generator().manual_seed(9))
+    runs = []
+    for fn in (filter_log_power, filter_log_power_plain):
+        monkeypatch.setattr(thga, "filter_log_power", fn)
+        pre, post, nb = feature_transforms(None)
+        ex = HighGammaExtractor(fs=1000, nb_electrodes=nb, pre_transforms=pre,
+                                post_transforms=post, device=dev)
+        st, frames = ex.init_state(), []
+        for k in range(0, 4000, 40):
+            f, st = ex.packet_step(st, raw[k:k + 40].to(dev))
+            frames.append(f)
+        runs.append((torch.cat(frames), st))
+    (fk, sk), (fp, sp) = runs
+    torch.testing.assert_close(fk, fp, atol=1e-5, rtol=0)
+    assert torch.equal(sk.zi, sp.zi)
+    assert torch.equal(sk.remainder, sp.remainder)
+
+
+def test_front_end_kernel_refuses_what_it_does_not_take(dev):
+    """On CUDA tensors the wrapper launches or raises: float64 input, state
+    left on the CPU and a mis-shaped carry are refused."""
+    sos, x, zi, carry = _front_end_inputs(dev, 40, 40)
+    with pytest.raises(TypeError):
+        filter_log_power(sos, x.double(), zi, carry, 10, 50)
+    with pytest.raises(ValueError):
+        filter_log_power(sos, x, zi.cpu(), carry, 10, 50)
+    with pytest.raises(ValueError):
+        filter_log_power(sos, x, zi, carry[:, :32], 10, 50)
 
 
 def _flagship_inputs(dev, frames, seed=0, name="vocoder_speech.npz",
