@@ -30,6 +30,13 @@
    Through the kernel a 100-frame call must equal two 50-frame calls bit
    for bit, at bunch 1 and bunch 8.  A sampler's bound counts the gathered
    tables at the distinct rows the block's data reads.
+   The DSP vocoder's sample loop (D1: ``dsp_synthesis``, no TPU kernel
+   behind it) on seeded features with voiced and unvoiced frames and
+   periods 32-256, at one stream x 260 frames (a word), eight x 50 and one
+   x 1, against its plain version run on the CPU: pcm and carried state bit
+   for bit; through the vocoder 100 frames must equal 50 + 50 bit for bit;
+   timed per 260-frame word by torch.profiler and events beside an empty
+   launch, with its bound and the serial chain's estimate.
 3. Drives the port's online word path twice, with the shipped
    weights/vocoder_speech.npz (bunch 1, K2) and with
    weights/vocoder_speech_b8.npz (bunch 8, K3): a 16 s, 129-channel
@@ -43,9 +50,20 @@
    size), and the eager cascade must not run on a CUDA tensor.  After each
    run the packet step is split (host clock, synchronized): copy +
    pre-transforms, the front-end kernel, post-transform + nVAD + read-back.
+   The shipped configuration, config/debug_settings.ini (vocoder_backend
+   = dsp, fused_* = auto), twice on the same session in real time: as it
+   resolves on cuda (FusedFrontendVad -> RecurrentNeuralDecodingModel ->
+   DelayedLPCNetVocoder(dsp); asserted), then with both fused_* switches
+   false (HighGammaActivity -> FilterSpeechSegments -> the same word
+   path), each through the app's own Neuroprosthesis with a PacketReplay
+   source and its real loggers and stdout sink: three segments, each
+   word's wav and the stdout PCM frames x 160 int16 samples, the
+   front-end kernel launched once per packet call plus its warm-up calls,
+   D1 once per word, and neither the eager cascade nor D1's plain loop on
+   a CUDA tensor.
    Then the offline entries: dss_tpu_torch.apps.synthesize on a seeded
-   [300, 20] feature file with the b4 checkpoint (a wav of 48000 int16
-   samples), and BatchedLPCNet(batch=8).
+   [300, 20] feature file with the b4 checkpoint and with its default
+   dsp backend (wavs of 48000 int16 samples), and BatchedLPCNet(batch=8).
 4. Prints the kernels' line, latencies, the card's name and power limit,
    and last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
    without that line.  ``--report PATH`` also writes every measurement
@@ -660,9 +678,151 @@ def main(report_path=None) -> int:
               f"packet (host clock), {ms:.2f} ms (events)")
     ph.run("IIR cascade per packet", iir)
 
+    # ---- D1: the DSP vocoder's sample loop -----------------------------------
+    from dss_tpu_torch.ops import dsp_synthesis as d1_mod
+    from dss_tpu_torch.ops.dsp_synthesis import DspCarry, dsp_synthesis, \
+        dsp_synthesis_plain
+    from dss_tpu_torch.vocoder import dsp as tdsp
+    d1 = report["kernels"]["dsp_synthesis"] = {"cases": {}}
+
+    def d1_inputs(batch, frames, seed):
+        """Seeded sample-loop inputs on the CPU: features with voiced and
+        unvoiced frames and periods 32-256 through the frame-rate part,
+        Gaussian noise and a nonzero carried state."""
+        rng = np.random.default_rng(seed)
+        feats = rng.normal(size=(batch, frames, 20)).astype(np.float32) * .3
+        feats[..., 0] -= 2.0
+        feats[..., 18] = rng.uniform(-1.36, 3.12, size=(batch, frames))
+        feats[..., 19] = np.where(rng.random((batch, frames)) < 0.6,
+                                  rng.uniform(0.0, 0.5, (batch, frames)),
+                                  rng.uniform(-0.5, -0.2, (batch, frames)))
+        params = tdsp.frame_parameters(torch.as_tensor(feats))
+        noise = torch.as_tensor(rng.normal(size=(batch, frames, 160))
+                                .astype(np.float32))
+        carry = DspCarry(
+            torch.as_tensor(rng.normal(size=(batch, 16)).astype(np.float32))
+            * 0.1,
+            torch.as_tensor(rng.integers(-3, 200, batch).astype(np.int32)),
+            torch.as_tensor(rng.normal(size=batch).astype(np.float32)) * 0.1)
+        return (*params, noise), carry
+
+    def d1_check():
+        for batch, frames in ((1, 260), (8, 50), (1, 1)):
+            inputs, carry = d1_inputs(batch, frames, frames)
+            pcm, out = dsp_synthesis(*(t.to(dev) for t in inputs),
+                                     DspCarry(*(t.to(dev) for t in carry)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, want_out = dsp_synthesis_plain(*inputs, carry)
+            plain_s = time.perf_counter() - t0
+            exact = torch.equal(pcm.cpu(), want) and all(
+                torch.equal(a.cpu(), b) for a, b in zip(out, want_out))
+            voiced = float(inputs[3].float().mean())
+            d1["cases"][f"B{batch}_T{frames}"] = dict(
+                bit_equal=exact, plain_cpu_s=plain_s, voiced_share=voiced,
+                periods=[int(inputs[4].min()), int(inputs[4].max())])
+            print(f"D1 B={batch} T={frames}: pcm and state bit-equal to the "
+                  f"plain version {exact} (plain loop on the CPU {plain_s:.2f}"
+                  f" s; voiced share {voiced:.2f})")
+            if not exact or pcm.shape != (batch, frames * 160):
+                raise AssertionError(f"D1 B={batch} T={frames}: kernel != "
+                                     f"plain")
+        d1["plain_ms"] = d1["cases"]["B1_T260"]["plain_cpu_s"] * 1e3
+        d1["max_abs_err"] = 0.0
+        # 100 frames in one call equal 50 + 50, through the vocoder.
+        g = np.random.default_rng(4)
+        feats = torch.as_tensor(g.normal(size=(2, 100, 20)).astype(
+            np.float32) * 0.3, device=dev)
+        st = tdsp.dsp_vocoder_init(4, 2, dev)
+        whole, s_whole = tdsp.dsp_synthesize_frames(st, feats)
+        p1, s1 = tdsp.dsp_synthesize_frames(st, feats[:, :50])
+        p2, s2 = tdsp.dsp_synthesize_frames(s1, feats[:, 50:])
+        torch.cuda.synchronize()
+        same = torch.equal(torch.cat([p1, p2], dim=1), whole) and all(
+            torch.equal(a, b) for a, b in zip(s2[:3], s_whole[:3]))
+        d1["chunk_invariance_100_eq_50_50"] = same
+        print(f"D1 through the vocoder, 100 frames == 50 + 50 bit for bit: "
+              f"{same}")
+        if not same or not bool(whole.abs().max() > 0):
+            raise AssertionError("D1: chunked != single-shot")
+    ph.run("D1 DSP sample loop vs plain (B=1 T=260, B=8 T=50, T=1; "
+           "100 == 50 + 50)", d1_check)
+
+    def d1_timing():
+        inputs, carry = d1_inputs(1, 260, 260)
+        inputs = tuple(t.to(dev) for t in inputs)
+        carry = DspCarry(*(t.to(dev) for t in carry))
+        run = lambda: dsp_synthesis(*inputs, carry)  # noqa: E731
+        clocks = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
+        dev_ms, records = profiled_ms(run, 20, "dsp_synthesis_kernel")
+        ev_ms = cuda_ms(run, 20)
+        lib = _cuda.library()
+        stream = torch.cuda.current_stream().cuda_stream
+        empty = lambda: _cuda.check(  # noqa: E731
+            lib.dss_empty_launch(1, stream), "empty")
+        floor_prof, _ = profiled_ms(empty, 200, "empty_kernel")
+        clocks.terminate()
+        # The rest of a word's vocoder call, host clock with a synchronize:
+        # the frame-rate part (pitch, cepstrum -> LPC, gain) and the noise.
+        g = np.random.default_rng(9)
+        feats = torch.as_tensor(g.normal(size=(1, 260, 20)).astype(
+            np.float32) * 0.3, device=dev)
+        parts = {"frame_rate_ms": lambda: tdsp.frame_parameters(feats),
+                 "noise_ms": lambda: tdsp.gaussian_noise(0, 1, 0, 260, dev)}
+        for name, fn in parts.items():
+            fn()
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            d1[name] = pct(times, 50)
+        mhz = [int(v) for v in clocks.communicate()[0].split()
+               if v.strip().isdigit()]
+        n = 260 * 160
+        # Bytes: each input read once (lpc 64, gain, v_mix, period 4 each,
+        # voiced 1, noise 640 per frame), state in and out, pcm out.
+        nbytes = 260 * (64 + 4 + 4 + 1 + 4 + 640 + 640) + 2 * (64 + 4 + 4)
+        # Operations a sample: 16 products, 15 sums, the excitation's 3
+        # products and 2 sums and the gain, the subtraction, de-emphasis's
+        # product and sum, the clip's two comparisons.
+        flops = n * (16 + 15 + 6 + 1 + 2 + 2)
+        t_b, t_f = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+        clock = (pct(mhz, 50) or H100_BOOST_HZ / 1e6) * 1e6
+        # The serial chain: s depends on the previous s through one product,
+        # four sums of the tree and the subtraction, ~4 clocks each.
+        chain_ms = n * 6 * 4 / clock * 1e3
+        d1.update(
+            profiler_ms=dev_ms, profiler_records=records, events_ms=ev_ms,
+            launch_floor_profiler_ms=floor_prof,
+            ms=dev_ms if dev_ms is not None else ev_ms,
+            ms_from="profiler" if dev_ms is not None else "events",
+            us_per_sample=(dev_ms or ev_ms) * 1e3 / n,
+            bound_ms=max(t_b, t_f) * 1e3,
+            bound_by="bytes" if t_b > t_f else "operations", bytes=nbytes,
+            flops=flops, chain_estimate_ms=chain_ms,
+            sm_clock_mhz=dict(min=min(mhz, default=None), median=pct(mhz, 50),
+                              max=max(mhz, default=None)))
+        print(f"D1 per 260-frame word (41,600 samples, one stream): profiler "
+              f"{dev_ms} ms over {records} records, events {ev_ms:.4f} ms "
+              f"({d1['us_per_sample'] * 1e3:.1f} ns a sample); empty launch "
+              f"{floor_prof} ms; plain loop (CPU) {d1['plain_ms']:.0f} ms; "
+              f"bound {d1['bound_ms']:.2e} ms ({d1['bound_by']}); chain "
+              f"estimate {chain_ms:.3f} ms at {clock / 1e6:.0f} MHz; SM clock "
+              f"{d1['sm_clock_mhz']}; the rest of the word's call (host "
+              f"clock, p50 of 5): frame-rate part {d1['frame_rate_ms']:.2f} "
+              f"ms, noise {d1['noise_ms']:.2f} ms")
+    ph.run("D1 timing per 260-frame word (profiler, events, launch floor)",
+           d1_timing)
+
     # ---- the main path -----------------------------------------------------
     counters = {"log_power": log_power,
                 "filter_log_power": filter_log_power,
+                "dsp_synthesis": dsp_synthesis,
                 "lpcnet_sampler_b1": sampler_frames,
                 "lpcnet_sampler_bunched": sampler_frames_bunched}
 
@@ -869,6 +1029,146 @@ def main(report_path=None) -> int:
                              ("filter_log_power",
                               "lpcnet_sampler_bunched")))
 
+    # ---- the shipped configuration (config/debug_settings.ini) ---------------
+    def shipped(key, resolved):
+        """The shipped INI's system, replayed in real time: as the INI
+        resolves on the card (``resolved``: fused front end, separate
+        decoder, dsp vocoder), or with both fused_* switches false (the
+        fully separate chain)."""
+        from contextlib import redirect_stdout
+        from dataclasses import replace
+
+        from scipy.io.wavfile import read as wavread
+
+        from dss_tpu_torch import runtime as ez
+        from dss_tpu_torch.apps.decode_online import Neuroprosthesis, \
+            build_settings
+        from dss_tpu_torch.runtime.units import PacketReplay, \
+            PacketReplaySettings
+
+        s = build_settings(str(ROOT / "config" / "debug_settings.ini"), "run",
+                           device="cuda")
+        if not (s.fused_frontend and not s.fused_decoder
+                and s.vocoder_backend == "dsp"):
+            raise AssertionError(f"the shipped INI resolves on cuda to "
+                                 f"fused_frontend={s.fused_frontend} "
+                                 f"fused_decoder={s.fused_decoder} "
+                                 f"backend={s.vocoder_backend}")
+        if not resolved:
+            s = replace(s, fused_frontend=False, fused_decoder=False)
+        mp = report["main_path"][key] = dict(
+            fused_frontend=s.fused_frontend, fused_decoder=s.fused_decoder,
+            vocoder_backend=s.vocoder_backend)
+        with tempfile.TemporaryDirectory() as tmp:
+            vad_path = Path(tmp) / "vad_threshold.npz"
+            np.savez(vad_path, **threshold_vad())
+            s = replace(s, destination_dir=str(Path(tmp) / "run"),
+                        vad_model_weights=vad_path)
+
+            class Replayed(Neuroprosthesis):
+                CONNECTOR = PacketReplay()
+
+                def configure_source(self):
+                    self.CONNECTOR.apply_settings(PacketReplaySettings(
+                        data=session(), fs=1000, period=0.04))
+
+            system = Replayed(s)
+            on_card = []
+
+            def cascade_guard(sos, x, zi):
+                if x.is_cuda:
+                    on_card.append("eager cascade")
+                    raise AssertionError("eager cascade on the card")
+                return sosfilt_scan(sos, x, zi)
+
+            def plain_guard(*args):
+                if args[1].is_cuda:
+                    on_card.append("D1 plain loop")
+                    raise AssertionError("D1's plain loop on the card")
+                return dsp_synthesis_plain(*args)
+            mods = (hga_mod, filters_mod, flp_mod)
+            for m in mods:
+                m.sosfilt_scan = cascade_guard
+            d1_mod.dsp_synthesis_plain = plain_guard
+            try:
+                zero_counts()
+                t0 = time.perf_counter()
+                with open(Path(tmp) / "audio.pcm", "w") as fd, \
+                        redirect_stdout(fd):
+                    ez.run_system(system)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+            finally:
+                for m in mods:
+                    m.sosfilt_scan = sosfilt_scan
+                d1_mod.dsp_synthesis_plain = dsp_synthesis_plain
+            run = Path(tmp) / "run"
+            rows = (run / "log.vad.lab").read_text().splitlines()
+            frames = [int(r.split("\t")[2].split()[0]) for r in rows]
+            words = [wavread(run / "reco" / f"reco_{k:05d}.wav")
+                     for k in range(1, len(rows) + 1)]
+            pcm = np.fromfile(Path(tmp) / "audio.pcm", np.int16)
+            lpc = np.fromfile(run / "log.lpc.f32", np.float32).reshape(-1, 20)
+        sink = system.LOUDSPEAKER
+        if s.fused_frontend:
+            packet_ms = {"front_end_vad": system.FUSED_FRONTEND.step_ms}
+            warm = len(system.FUSED_FRONTEND._sizes)
+        else:
+            packet_ms = {"high_gamma": system.FEATURE_EXTRACTOR.step_ms,
+                         "vad": system.SPEECH_FILTER.step_ms}
+            warm = 1
+        calls = len(next(iter(packet_ms.values())))
+        mp.update(
+            wall_s=wall, launches=launches, words=len(words),
+            word_frames=frames, packet_calls=calls,
+            packet_ms={k: dict(p50=pct(v, 50), p95=pct(v, 95))
+                       for k, v in packet_ms.items()},
+            decode_ms=system.DECODING_MODEL.decode_ms,
+            vocode_ms=system.WAVEFORM_GENERATOR.vocode_ms,
+            ingest_to_audio_ms=sink.latencies_ms, budget=sink.budget,
+            front_end_expected_launches=calls + warm,
+            dsp_expected_launches=len(words))
+        print(f"shipped config ({key}): fused_frontend={s.fused_frontend} "
+              f"fused_decoder={s.fused_decoder} backend={s.vocoder_backend}; "
+              f"{len(words)} word(s) of {frames} frames, {wall:.1f} s wall, "
+              f"launches {launches}; packet step "
+              + ", ".join(f"{k} p50 {v['p50']:.2f} / p95 {v['p95']:.2f} ms"
+                          for k, v in mp["packet_ms"].items())
+              + f" over {calls} calls; decode "
+              f"{[round(x, 1) for x in mp['decode_ms']]} ms; vocode "
+              f"{[round(x, 1) for x in mp['vocode_ms']]} ms; ingest->audio "
+              f"{[round(x, 1) for x in sink.latencies_ms]} ms")
+        if sink.budget:
+            print("latency budget (p50 ms): " + ", ".join(
+                f"{k} {v['p50']:.1f}" for k, v in sink.budget["stages"].items()))
+        if on_card:
+            raise AssertionError(f"plain versions on the card: {on_card}")
+        if len(words) != 3:
+            raise AssertionError(f"{len(words)} segments closed for 3 bursts")
+        for (fs, word), n in zip(words, frames):
+            if fs != 16000 or word.dtype != np.int16 or len(word) != n * 160 \
+                    or not word.any():
+                raise AssertionError(f"word PCM {word.dtype} {len(word)} at "
+                                     f"{fs} Hz for {n} frames")
+        if len(pcm) != sum(frames) * 160 or len(lpc) != sum(frames) \
+                or not np.all(np.isfinite(lpc)):
+            raise AssertionError(f"stdout PCM {len(pcm)} samples, {len(lpc)} "
+                                 f"feature frames for {frames}")
+        if launches["filter_log_power"] != calls + warm:
+            raise AssertionError(
+                f"front-end kernel: {launches['filter_log_power']} launches "
+                f"for {calls} packet calls + {warm} warm-up calls")
+        if launches["dsp_synthesis"] != len(words):
+            raise AssertionError(f"D1: {launches['dsp_synthesis']} launches "
+                                 f"for {len(words)} words")
+    ph.run("shipped config, run 1 (INI on cuda: FusedFrontendVad -> "
+           "RecurrentNeuralDecodingModel -> DelayedLPCNetVocoder(dsp))",
+           lambda: shipped("ship_resolved", True))
+    ph.run("shipped config, run 2 (fused_* false: HighGammaActivity -> "
+           "FilterSpeechSegments -> decoder -> DelayedLPCNetVocoder(dsp))",
+           lambda: shipped("ship_separate", False))
+
     # ---- the offline entries ------------------------------------------------
     def offline():
         from scipy.io.wavfile import read as wavread
@@ -886,10 +1186,25 @@ def main(report_path=None) -> int:
             zero_counts()
             t0 = time.perf_counter()
             synthesize.main([str(Path(tmp) / "feats.npy"),
-                             str(Path(tmp) / "out.wav"), "--bunch", "4"])
+                             str(Path(tmp) / "out.wav"), "--backend", "net",
+                             "--bunch", "4"])
             off["synthesize_s"] = time.perf_counter() - t0
             off["synthesize_launches"] = read_counts()
             fs, pcm = wavread(Path(tmp) / "out.wav")
+            # The CLI's default backend, dsp: one D1 launch for the file.
+            zero_counts()
+            t0 = time.perf_counter()
+            synthesize.main([str(Path(tmp) / "feats.npy"),
+                             str(Path(tmp) / "dsp.wav")])
+            off["synthesize_dsp_s"] = time.perf_counter() - t0
+            off["synthesize_dsp_launches"] = read_counts()
+            fs_d, pcm_d = wavread(Path(tmp) / "dsp.wav")
+        if fs_d != 16000 or pcm_d.dtype != np.int16 \
+                or pcm_d.shape != (300 * 160,) or not pcm_d.any() \
+                or off["synthesize_dsp_launches"]["dsp_synthesis"] != 1:
+            raise AssertionError(f"synthesize (dsp): fs {fs_d}, {pcm_d.dtype} "
+                                 f"{pcm_d.shape}, launches "
+                                 f"{off['synthesize_dsp_launches']}")
         if fs != 16000 or pcm.dtype != np.int16 or pcm.shape != (300 * 160,) \
                 or not np.all(np.isfinite(pcm.astype(np.float64))) \
                 or not pcm.any():
@@ -911,14 +1226,16 @@ def main(report_path=None) -> int:
             raise AssertionError(f"BatchedLPCNet: stream RMS {rms}")
         print(f"offline: synthesize 300 frames (b4) in "
               f"{off['synthesize_s']:.2f} s, launches "
-              f"{off['synthesize_launches']}; BatchedLPCNet 8 x 50 frames "
+              f"{off['synthesize_launches']}; with the dsp default in "
+              f"{off['synthesize_dsp_s']:.2f} s; BatchedLPCNet 8 x 50 frames "
               f"in {off['batched_8x50_s']:.2f} s, launches "
               f"{off['batched_launches']}")
         for which in ("synthesize_launches", "batched_launches"):
             if off[which]["lpcnet_sampler_bunched"] <= 0:
                 raise AssertionError(f"offline: K3 never launched "
                                      f"({which})")
-    ph.run("offline entries (apps.synthesize b4, BatchedLPCNet 8 streams)",
+    ph.run("offline entries (apps.synthesize b4 and dsp, BatchedLPCNet 8 "
+           "streams)",
            offline)
 
     smi = subprocess.run(
@@ -946,14 +1263,19 @@ def main(report_path=None) -> int:
         "lpcnet_sampler_bunched": (
             "cuda", "dss_tpu_torch/csrc/lpcnet_sampler_bunched.cu",
             "dss_tpu/ops/pallas/sampler.py:827"),
+        # No TPU kernel: the JAX package runs this loop as lax.scan.
+        "dsp_synthesis": ("cuda", "dss_tpu_torch/csrc/dsp_synthesis.cu",
+                          "dss_tpu/vocoder/dsp.py:67"),
     }
     # Each kernel's launches on the main path that runs it: the front-end
     # kernel and the sampler at bunch 1 (K2) on the bunch-1 word path, the
     # sampler at bunch 8 (K3) on the bunch-8 word path.  The standalone
     # log-power kernel is on neither path since the front-end kernel took
-    # its place; its count is read on the bunch-8 path (0).
+    # its place; its count is read on the bunch-8 path (0).  D1 on the
+    # shipped configuration as the INI resolves on the card.
     path_of = {"log_power": "b8", "filter_log_power": "b1",
-               "lpcnet_sampler_b1": "b1", "lpcnet_sampler_bunched": "b8"}
+               "lpcnet_sampler_b1": "b1", "lpcnet_sampler_bunched": "b8",
+               "dsp_synthesis": "ship_resolved"}
     kernels = []
     for name, (route, src, replaces) in meta.items():
         k = report["kernels"][name]

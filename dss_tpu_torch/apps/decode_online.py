@@ -4,20 +4,38 @@
         [--overwrite] [--device cuda|cpu]
 
 Reads the INI schema of apps/decode_online.py (e.g.
-config/debug_settings.ini) and builds the fused graph: ZMQ ingest ->
-FusedFrontendVad (front end + nVAD + segmenting) -> FusedDecoderVocoder
-(decoder + neural vocoder) -> int16 PCM on stdout, with the raw / HGA / VAD
-/ LPC / wav log taps.  Only ``vocoder_backend = net`` is ported, with any
-shipped checkpoint as ``vocoder_weights`` (bunch 1, or the bunched
-``weights/vocoder_speech_b{2,4,8}.npz``: the bunch is read from the file);
-the separate-chain units, the DSP vocoder and ``segment_policy_labs`` are
-not.
+config/debug_settings.ini, which ships ``vocoder_backend = dsp`` and
+``fused_* = auto``) and builds the same graph: ZMQ ingest -> packet path
+-> segments -> word path -> int16 PCM on stdout, with the raw / HGA / VAD /
+LPC / wav log taps and ``latency_budget.json``.
+
+* Packet path: ``FusedFrontendVad`` (front end + nVAD in one device call)
+  when ``fused_frontend`` is true, else ``HighGammaActivity`` ->
+  ``FilterSpeechSegments``.
+* Word path: ``FusedDecoderVocoder`` when ``fused_decoder`` is true, else
+  ``RecurrentNeuralDecodingModel`` -> ``DelayedLPCNetVocoder``.
+* ``auto`` (the default of both) resolves as the JAX app resolves it on an
+  accelerator: a fused packet path when the device is ``cuda``; a fused
+  word path only on ``cuda`` with ``vocoder_backend = net``.  So the
+  shipped INI runs ``FusedFrontendVad -> RecurrentNeuralDecodingModel ->
+  DelayedLPCNetVocoder(dsp)`` on the card and the fully separate chain on
+  the CPU.
+* ``vocoder_backend``: ``dsp`` (the default, weight-free; kernel D1 on the
+  card) or ``net`` (``vocoder_weights``, default the packaged flagship;
+  bunched checkpoints carry their bunch).
+* ``segment_policy_labs``: prior runs' ``log.vad.lab`` files pick the
+  padding bucket and the warmed lengths (runtime/bucket_policy.py).
+
+``Neuroprosthesis.configure_source`` is the one place that names the
+ingest, so a caller can replay a session in-process (``PacketReplay``)
+through the same units.
 """
 
 from __future__ import annotations
 
 import argparse
 import configparser
+import glob
 import json
 import logging
 import os
@@ -26,21 +44,32 @@ from pathlib import Path
 from typing import Iterable, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import runtime as ez
 from ..models.decoder import BidirectionalSpeechSynthesisModel
 from ..models.vad import UnidirectionalVoiceActivityDetector
 from ..ops.car import CommonAverageReferencing, ZScoreNormalization
+from ..runtime.bucket_policy import choose_policy, load_lab_lengths
 from ..runtime.units import (
     BinaryLogger,
+    DelayedLPCNetVocoder,
+    DelayedLPCNetVocoderSettings,
     DelayedStdoutForSoX,
     DelayedWavLogger,
     DelayedWavLoggerSettings,
+    FilterSpeechSegments,
+    FilterSpeechSegmentsSettings,
     FusedDecoderVocoder,
     FusedDecoderVocoderSettings,
     FusedFrontendVad,
     FusedFrontendVadSettings,
+    HighGammaActivity,
+    HighGammaActivitySettings,
     LoggerSettings,
+    RecurrentNeuralDecodingModel,
+    RecurrentNeuralDecodingModelSettings,
+    SoXOutputSettings,
     VoiceActivityDetectionLogger,
     ZMQConnector,
     ZMQConnectorSettings,
@@ -69,8 +98,14 @@ class NeuroprosthesisSettings(ez.Settings):
     decoding_model_weights: Optional[Path] = None
     vad_model_weights: Optional[Path] = None
     normalization_statistics: Optional[Path] = None
+    vocoder_backend: str = "dsp"
     vocoder_weights: Optional[str] = None
     idle_timeout: Optional[float] = None
+    # Front end + nVAD in one device call per packet (else two units).
+    fused_frontend: bool = False
+    # Decode + vocode in one unit per word (else two units).
+    fused_decoder: bool = False
+    # Ship a word's audio in 50-frame chunks (fused word path, net only).
     chunked_emission: bool = True
     segment_length_multiple: int = 50
     segment_prewarm_frames: Tuple[int, ...] = (50, 150, 200, 250, 300)
@@ -105,10 +140,16 @@ def feature_transforms(normalization_statistics: Optional[Path]):
 
 
 class Neuroprosthesis(ez.System):
-    """ZMQ ingest -> fused packet path -> fused word path -> stdout PCM."""
+    """Ingest -> packet path -> word path -> stdout PCM, plus the log taps;
+    ``configure`` removes the units that the ``fused_*`` switches leave
+    out."""
 
     CONNECTOR = ZMQConnector()
+    FEATURE_EXTRACTOR = HighGammaActivity()
+    SPEECH_FILTER = FilterSpeechSegments()
     FUSED_FRONTEND = FusedFrontendVad()
+    DECODING_MODEL = RecurrentNeuralDecodingModel()
+    WAVEFORM_GENERATOR = DelayedLPCNetVocoder()
     DECODE_VOCODE = FusedDecoderVocoder()
     LOUDSPEAKER = DelayedStdoutForSoX()
     RAW_LOGGER = BinaryLogger()
@@ -119,36 +160,73 @@ class Neuroprosthesis(ez.System):
 
     SETTINGS: NeuroprosthesisSettings
 
-    def configure(self) -> None:
+    def configure_source(self) -> None:
         s = self.SETTINGS
         self.CONNECTOR.apply_settings(ZMQConnectorSettings(
             fs=s.fs, address=s.address, port=s.port,
             idle_timeout=s.idle_timeout))
+
+    def configure(self) -> None:
+        s = self.SETTINGS
+        self.configure_source()
         pre, post, nb_features = feature_transforms(s.normalization_statistics)
-        self.FUSED_FRONTEND.apply_settings(FusedFrontendVadSettings(
-            nb_features=nb_features, fs=s.fs, buffer_size=2000,
-            context_frames=50, pre_transforms=pre, post_transforms=post,
-            package_size=s.package_size, raw_channels=129,
-            vad_architecture=UnidirectionalVoiceActivityDetector,
-            vad_weights_path=s.vad_model_weights,
-            vad_parameters=dict(nb_layer=2, nb_hidden_units=150,
-                                nb_electrodes=nb_features),
-            device=s.device))
-        logger.info(f"VAD model weights: {s.vad_model_weights}; decoding "
-                    f"model weights: {s.decoding_model_weights}; vocoder "
-                    f"weights: {s.vocoder_weights}")
-        self.DECODE_VOCODE.apply_settings(FusedDecoderVocoderSettings(
+        vad = dict(vad_architecture=UnidirectionalVoiceActivityDetector,
+                   vad_weights_path=s.vad_model_weights,
+                   vad_parameters=dict(nb_layer=2, nb_hidden_units=150,
+                                       nb_electrodes=nb_features))
+        if s.fused_frontend:
+            delattr(self, "FEATURE_EXTRACTOR")
+            delattr(self, "SPEECH_FILTER")
+            self.FUSED_FRONTEND.apply_settings(FusedFrontendVadSettings(
+                nb_features=nb_features, fs=s.fs, buffer_size=2000,
+                context_frames=50, pre_transforms=pre, post_transforms=post,
+                package_size=s.package_size, raw_channels=129,
+                device=s.device, **vad))
+        else:
+            delattr(self, "FUSED_FRONTEND")
+            self.FEATURE_EXTRACTOR.apply_settings(HighGammaActivitySettings(
+                fs=s.fs, nb_electrodes=nb_features, pre_transforms=pre,
+                post_transforms=post, package_size=s.package_size,
+                raw_channels=129,  # BCI2000 exports: 128 ECoG + 1 audio
+                device=s.device))
+            self.SPEECH_FILTER.apply_settings(FilterSpeechSegmentsSettings(
+                nb_features=nb_features, fs=s.fs, buffer_size=2000,
+                context_frames=50, device=s.device, **vad))
+        logger.info(
+            f"VAD model weights: {s.vad_model_weights}; decoding model "
+            f"weights: {s.decoding_model_weights}; vocoder: "
+            f"backend={s.vocoder_backend} weights={s.vocoder_weights}; "
+            f"fused_frontend={s.fused_frontend} "
+            f"fused_decoder={s.fused_decoder} "
+            f"chunked_emission={s.chunked_emission}; segment buckets: "
+            f"length_multiple={s.segment_length_multiple} prewarm="
+            f"{list(s.segment_prewarm_frames)}")
+        decoder = dict(
             path_to_model_weights=(str(s.decoding_model_weights)
                                    if s.decoding_model_weights else None),
             model=BidirectionalSpeechSynthesisModel,
             params=dict(nb_layer=2, nb_hidden_units=100,
                         nb_electrodes=nb_features),
-            vocoder_weights=s.vocoder_weights,
-            chunk_emission=s.chunked_emission,
             length_multiple=s.segment_length_multiple,
-            prewarm_frames=tuple(s.segment_prewarm_frames),
-            device=s.device))
+            prewarm_frames=tuple(s.segment_prewarm_frames), device=s.device)
+        if s.fused_decoder:
+            delattr(self, "DECODING_MODEL")
+            delattr(self, "WAVEFORM_GENERATOR")
+            self.DECODE_VOCODE.apply_settings(FusedDecoderVocoderSettings(
+                vocoder_backend=s.vocoder_backend,
+                vocoder_weights=s.vocoder_weights,
+                chunk_emission=s.chunked_emission, **decoder))
+        else:
+            delattr(self, "DECODE_VOCODE")
+            self.DECODING_MODEL.apply_settings(
+                RecurrentNeuralDecodingModelSettings(**decoder))
+            self.WAVEFORM_GENERATOR.apply_settings(
+                DelayedLPCNetVocoderSettings(backend=s.vocoder_backend,
+                                             weights=s.vocoder_weights,
+                                             device=s.device))
         dest = s.destination_dir
+        self.LOUDSPEAKER.apply_settings(SoXOutputSettings(
+            budget_path=os.path.join(dest, "latency_budget.json")))
         self.RAW_LOGGER.apply_settings(LoggerSettings(
             filename=os.path.join(dest, "log.raw.f64"), overwrite=True))
         self.HGA_LOGGER.apply_settings(LoggerSettings(
@@ -162,16 +240,42 @@ class Neuroprosthesis(ez.System):
             overwrite=True))
 
     def network(self) -> ez.NetworkDefinition:
-        return (
-            (self.CONNECTOR.OUTPUT, self.FUSED_FRONTEND.INPUT),
-            (self.CONNECTOR.OUTPUT, self.RAW_LOGGER.INPUT),
-            (self.FUSED_FRONTEND.FEATURES, self.HGA_LOGGER.INPUT),
-            (self.FUSED_FRONTEND.OUTPUT, self.VAD_LOGGER.INPUT),
-            (self.FUSED_FRONTEND.OUTPUT, self.DECODE_VOCODE.INPUT),
-            (self.DECODE_VOCODE.LPC, self.LPC_LOGGER.INPUT),
-            (self.DECODE_VOCODE.OUTPUT, self.LOUDSPEAKER.INPUT),
-            (self.DECODE_VOCODE.WORD, self.WAV_LOGGER.INPUT),
-        )
+        # Packet path: ingest -> features -> VAD-gated segments (+ taps).
+        if self.SETTINGS.fused_frontend:
+            edges = [
+                (self.CONNECTOR.OUTPUT, self.FUSED_FRONTEND.INPUT),
+                (self.CONNECTOR.OUTPUT, self.RAW_LOGGER.INPUT),
+                (self.FUSED_FRONTEND.FEATURES, self.HGA_LOGGER.INPUT),
+                (self.FUSED_FRONTEND.OUTPUT, self.VAD_LOGGER.INPUT),
+            ]
+            segments = self.FUSED_FRONTEND.OUTPUT
+        else:
+            edges = [
+                (self.CONNECTOR.OUTPUT, self.FEATURE_EXTRACTOR.INPUT),
+                (self.FEATURE_EXTRACTOR.OUTPUT, self.SPEECH_FILTER.INPUT),
+                (self.CONNECTOR.OUTPUT, self.RAW_LOGGER.INPUT),
+                (self.FEATURE_EXTRACTOR.OUTPUT, self.HGA_LOGGER.INPUT),
+                (self.SPEECH_FILTER.OUTPUT, self.VAD_LOGGER.INPUT),
+            ]
+            segments = self.SPEECH_FILTER.OUTPUT
+        # Word path: segments -> acoustic features -> audio (+ taps).
+        if self.SETTINGS.fused_decoder:
+            edges += [
+                (segments, self.DECODE_VOCODE.INPUT),
+                (self.DECODE_VOCODE.LPC, self.LPC_LOGGER.INPUT),
+                # OUTPUT: audio chunks in order; WORD: the whole word.
+                (self.DECODE_VOCODE.OUTPUT, self.LOUDSPEAKER.INPUT),
+                (self.DECODE_VOCODE.WORD, self.WAV_LOGGER.INPUT),
+            ]
+        else:
+            edges += [
+                (segments, self.DECODING_MODEL.INPUT),
+                (self.DECODING_MODEL.OUTPUT, self.WAVEFORM_GENERATOR.INPUT),
+                (self.WAVEFORM_GENERATOR.OUTPUT, self.LOUDSPEAKER.INPUT),
+                (self.DECODING_MODEL.OUTPUT, self.LPC_LOGGER.INPUT),
+                (self.WAVEFORM_GENERATOR.OUTPUT, self.WAV_LOGGER.INPUT),
+            ]
+        return tuple(edges)
 
 
 def build_settings(settings_filename: str, run_name: str,
@@ -187,16 +291,34 @@ def build_settings(settings_filename: str, run_name: str,
             return None
         return None if value == "" else conv(value)
 
+    def switch(key, auto):
+        raw = (optional(key) or "auto").lower()
+        return auto if raw == "auto" else raw in ("1", "true", "yes")
+
     backend = optional("vocoder_backend") or "dsp"
-    if backend != "net":
-        raise ValueError(f"vocoder_backend = {backend}: the port runs the "
-                         f"neural vocoder only; set vocoder_backend = net")
-    if optional("segment_policy_labs"):
-        logger.warning("segment_policy_labs is not ported; using the "
-                       "configured buckets")
+    weights = optional("vocoder_weights")
+    if backend == "net" and not weights:
+        weights = str(PACKAGED_VOCODER)  # random weights would be noise
+    on_card = torch.device("cuda" if device is None else device).type \
+        == "cuda"
     prewarm = optional("segment_prewarm_frames",
                        lambda v: tuple(json.loads(v)))
-    chunked = (optional("chunked_emission") or "true").lower()
+    multiple = optional("segment_length_multiple", int) or 50
+    prewarm = (50, 150, 200, 250, 300) if prewarm is None else prewarm
+    labs = optional("segment_policy_labs")
+    if labs:
+        paths = [p for pat in labs.split() for p in sorted(glob.glob(pat))]
+        lengths = load_lab_lengths(paths) if paths \
+            else np.zeros(0, np.int64)
+        if len(lengths) >= 5:
+            multiple, prewarm = choose_policy(lengths)
+            logger.info(f"Bucket policy from {len(paths)} lab file(s), "
+                        f"{len(lengths)} segments: length_multiple="
+                        f"{multiple}, prewarm={list(prewarm)}")
+        else:
+            logger.warning(f"segment_policy_labs matched {len(lengths)} "
+                           f"segment(s) (< 5): keeping the configured "
+                           f"buckets")
     return NeuroprosthesisSettings(
         destination_dir=os.path.join(config.get("Decoding", "base_out_dir"),
                                      run_name),
@@ -209,13 +331,17 @@ def build_settings(settings_filename: str, run_name: str,
         vad_model_weights=optional("vad_model_weights", Path),
         normalization_statistics=optional("initial_normalization_statistics",
                                           Path),
-        vocoder_weights=(optional("vocoder_weights")
-                         or str(PACKAGED_VOCODER)),
+        vocoder_backend=backend,
+        vocoder_weights=weights,
         idle_timeout=optional("idle_timeout", float),
-        chunked_emission=chunked in ("1", "true", "yes", "auto"),
-        segment_length_multiple=optional("segment_length_multiple", int) or 50,
-        segment_prewarm_frames=((50, 150, 200, 250, 300) if prewarm is None
-                                else prewarm),
+        # auto: fuse the packet path on the card; fuse the word path only
+        # on the card with the neural vocoder (apps/decode_online.py).
+        fused_frontend=switch("fused_frontend", on_card),
+        fused_decoder=switch("fused_decoder", on_card and backend == "net"),
+        chunked_emission=(optional("chunked_emission") or "true").lower()
+        in ("1", "true", "yes", "auto"),
+        segment_length_multiple=multiple,
+        segment_prewarm_frames=prewarm,
         device=device)
 
 

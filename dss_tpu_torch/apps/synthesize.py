@@ -1,11 +1,12 @@
 """Synthesize audio from stored vocoder features (.npy / .f32).
 
-    python -m dss_tpu_torch.apps.synthesize FEATS OUT.wav [--bunch 4]
+    python -m dss_tpu_torch.apps.synthesize FEATS OUT.wav
+        [--backend dsp|net] [--weights W.npz] [--bunch 4] [--device cpu]
 
 Counterpart of apps/synthesize.py: feed it a 20-dim feature matrix
 (``.npy`` [T, >=20], or an LPCNet ``.f32`` dump of 36 features per frame)
-and get a 16 kHz wav through the neural vocoder.  Runs on the card unless
-``--device cpu``.
+and get a 16 kHz wav through the DSP vocoder (the default, as in the JAX
+CLI) or the neural one.  Runs on the card unless ``--device cpu``.
 """
 
 import argparse
@@ -39,17 +40,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("features",
                         help="Feature file (.npy [T,20] or LPCNet .f32).")
     parser.add_argument("out_wav", help="Output wav path.")
-    parser.add_argument("--backend", default="net", choices=["dsp", "net"],
-                        help="Vocoder backend.  Defaults to net here (dsp "
-                             "in the JAX package) until the DSP vocoder is "
-                             "ported; dsp raises NotImplementedError.")
+    parser.add_argument("--backend", default="dsp", choices=["dsp", "net"],
+                        help="Vocoder backend: dsp (weight-free "
+                             "source-filter) or net (neural).")
     parser.add_argument("--weights", default=None,
-                        help="Neural vocoder weights (.npz); default: the "
-                             "packaged checkpoint (see --bunch).")
+                        help="Neural vocoder weights (.npz) for --backend "
+                             "net; default: the packaged checkpoint (see "
+                             "--bunch).")
     parser.add_argument("--bunch", type=int, default=1,
-                        help="Without --weights, pick the packaged "
-                             "checkpoint with this many samples per "
-                             "network step (1, 2, 4 or 8).")
+                        help="--backend net without --weights: pick the "
+                             "packaged checkpoint with this many samples "
+                             "per network step (1, 2, 4 or 8).")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu.")
     args = parser.parse_args(argv)

@@ -104,6 +104,8 @@ def library(defines: Sequence[str] = ()) -> ctypes.CDLL:
                        lib.dss_filter_log_power_one_warp):
                 fn.argtypes = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
                 fn.restype = _I
+            lib.dss_dsp_synthesis.argtypes = [_P] * 13 + [_I] * 2 + [_P]
+            lib.dss_dsp_synthesis.restype = _I
             lib.dss_empty_launch.argtypes = [_I, _P]
             lib.dss_empty_launch.restype = _I
             lib.dss_lpcnet_sampler_bunched.argtypes = (

@@ -208,13 +208,18 @@ class System:
         # a deep copy for unit classes with a custom constructor signature.
         import copy
 
-        for name, value in list(vars(type(self)).items()):
-            if isinstance(value, Unit):
-                try:
-                    clone = type(value)(settings=value.SETTINGS)
-                except TypeError:
-                    clone = copy.deepcopy(value)
-                setattr(self, name, clone)
+        # Units declared anywhere in the class hierarchy, a subclass's
+        # declaration replacing its base's (a subclass may swap a unit).
+        declared = {}
+        for klass in reversed(type(self).__mro__):
+            declared.update((name, value) for name, value in vars(klass).items()
+                            if isinstance(value, Unit))
+        for name, value in declared.items():
+            try:
+                clone = type(value)(settings=value.SETTINGS)
+            except TypeError:
+                clone = copy.deepcopy(value)
+            setattr(self, name, clone)
 
     def configure(self) -> None:  # noqa: B027
         pass

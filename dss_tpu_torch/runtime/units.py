@@ -1,14 +1,20 @@
-"""Streaming graph units of the online word path (counterpart of the fused
-units in dss_tpu/runtime/units.py).
+"""Streaming graph units of the online closed loop (counterpart of
+dss_tpu/runtime/units.py).
 
 * ``ZMQConnector``        — BCI2000 GenericSignal ZMQ SUB ingest;
 * ``PacketReplay``        — in-process replay of a recorded session;
 * ``FusedFrontendVad``    — packet -> front end -> nVAD -> segments, one
   device->host read per packet;
-* ``FusedDecoderVocoder`` — segment -> decoder -> neural vocoder -> int16
-  PCM, one device->host read per word (plus one per later audio chunk);
+* ``HighGammaActivity`` and ``FilterSpeechSegments`` — the same as two
+  units (the separate chain): packet -> features, features -> segments;
+* ``FusedDecoderVocoder`` — segment -> decoder -> vocoder -> int16 PCM,
+  one device->host read per word (plus one per later audio chunk on the
+  neural backend);
+* ``RecurrentNeuralDecodingModel`` and ``DelayedLPCNetVocoder`` — the same
+  as two units: segment -> features, features -> int16 PCM;
 * ``BinaryLogger``, ``VoiceActivityDetectionLogger``, ``DelayedWavLogger``
-  and ``DelayedStdoutForSoX`` — the log taps and the audio sink.
+  and ``DelayedStdoutForSoX`` — the log taps and the audio sink with its
+  latency budget.
 
 Device work runs eagerly on the unit's device (``cuda`` unless the
 settings say otherwise) inside a single-worker executor, so a slow device
@@ -18,6 +24,7 @@ call never freezes packet ingest and carried state stays ordered.
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import os
 import struct
@@ -37,7 +44,8 @@ from ..models.lstm import seeded_init
 from ..models.torch_port import load_checkpoint
 from ..ops.hga import HighGammaExtractor
 from ..ops.ringbuffer import SpeechSegmentHistory, VoiceActivityDetectionSmoothing
-from ..vocoder.lpcnet import _load_params, _sparse_pattern_of
+from ..vocoder.dsp import dsp_synthesize_frames, dsp_vocoder_init
+from ..vocoder.lpcnet import LPCNet, _load_params, _sparse_pattern_of
 from ..vocoder.net import COND_BLOCK, FRAME_SIZE, LPCNetModel, \
     net_synthesize_frames, net_vocoder_init, sampler_weights_for
 from .graph import InputStream, OutputStream, Settings, Unit, coalescing, \
@@ -252,6 +260,24 @@ def _load_lstm(arch, params: Optional[dict], weights: Optional[Path],
     return model.to(device).eval()
 
 
+@torch.no_grad()
+def _decode_padded(model, data: np.ndarray, T: int, mult: int, device):
+    """Decode the first T frames of ``data`` [>= T, E] padded to a multiple
+    of ``mult`` with a mask (exact: the padded LSTM equals the unpadded
+    one).  Returns (pred [1, T, F] of the valid frames, feats [1, Tp, F]
+    whose padded tail repeats the last valid frame, so that a vocoder never
+    consumes padding garbage)."""
+    Tp = -(-T // mult) * mult
+    x = torch.zeros((1, Tp, data.shape[1]))
+    x[0, :T] = torch.as_tensor(np.asarray(data[:T], np.float32))
+    mask = torch.zeros((1, Tp))
+    mask[0, :T] = 1.0
+    pred, _ = model(x.to(device), mask=mask)
+    feats = pred.clone()
+    feats[:, T:] = pred[:, T - 1:T]
+    return pred[:, :T], feats
+
+
 # region Fused packet path
 class FusedFrontendVadSettings(Settings):
     """Front end + nVAD in one device call per packet."""
@@ -393,20 +419,201 @@ class FusedFrontendVad(Unit):
 # endregion
 
 
+# region Separate packet path
+class HighGammaActivitySettings(Settings):
+    fs: int
+    nb_electrodes: int
+    window_length: float = 0.05
+    window_shift: float = 0.01
+    l_freq: int = 70
+    h_freq: int = 170
+    pre_transforms: Transforms = None
+    post_transforms: Transforms = None
+    # Packets of exactly this many samples take the explicit-state packet
+    # step (one front-end kernel launch each); others go through
+    # ``extract_features``.
+    package_size: Optional[int] = None
+    # Channel count of incoming packets (128 ECoG + 1 audio in BCI2000
+    # exports): with package_size it lets initialize() warm the packet step.
+    raw_channels: Optional[int] = None
+    device: Optional[str] = None  # None = cuda
+
+
+class HighGammaActivity(Unit):
+    """Packet -> high-gamma features (the front end of the separate chain).
+    Features leave as float64: ``log.hga.f64`` is f64 by contract."""
+
+    SETTINGS: HighGammaActivitySettings
+    # Bounded: when this unit falls behind, backpressure reaches the ingest,
+    # whose drop-old socket sheds stale packets.
+    INPUT = InputStream(TimeSeriesMessage, maxsize=8)
+    OUTPUT = OutputStream(TimeSeriesMessage)
+
+    def initialize(self) -> None:
+        s = self.SETTINGS
+        self._device = resolve_device(s.device)
+        self._extractor = HighGammaExtractor(
+            fs=s.fs, nb_electrodes=s.nb_electrodes,
+            window_length=s.window_length, window_shift=s.window_shift,
+            l_freq=s.l_freq, h_freq=s.h_freq, pre_transforms=s.pre_transforms,
+            post_transforms=s.post_transforms, device=self._device)
+        self._state = self._extractor.init_state()
+        self._first = True
+        self.step_ms: List[float] = []  # wall time of each packet step
+        # Its own stream, as FusedFrontendVad: packets must not queue
+        # behind a word's vocoder work on the default stream.
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._device.type == "cuda" else None)
+        if s.package_size is not None and s.raw_channels is not None:
+            # Nothing compiles, but the first call pays the kernels' build
+            # and the allocator's growth: pay them now, on a throwaway state.
+            with torch.no_grad(), torch.cuda.stream(self._stream):
+                feats, _ = self._extractor.packet_step(
+                    self._extractor.init_state(),
+                    torch.zeros((s.package_size, s.raw_channels),
+                                device=self._device))
+                feats.cpu()
+        self._executor = ThreadPoolExecutor(max_workers=1)
+
+    def shutdown(self) -> None:
+        self._executor.shutdown(wait=True)
+
+    def _packet_features(self, data: np.ndarray) -> np.ndarray:
+        t0 = time.perf_counter()
+        with torch.no_grad(), torch.cuda.stream(self._stream):
+            packet = torch.as_tensor(np.asarray(data, np.float32)).to(
+                self._device)
+            feats, self._state = self._extractor.packet_step(self._state,
+                                                             packet)
+            feats = feats.cpu().numpy()
+        self.step_ms.append((time.perf_counter() - t0) * 1000.0)
+        return feats
+
+    def _block_features(self, data: np.ndarray) -> np.ndarray:
+        with torch.no_grad(), torch.cuda.stream(self._stream):
+            return self._extractor.extract_features(data)
+
+    @subscriber(INPUT)
+    @publisher(OUTPUT)
+    async def process(self, msg: TimeSeriesMessage) -> AsyncGenerator:
+        s = self.SETTINGS
+        loop = asyncio.get_running_loop()
+        # Device work off the event loop; one worker keeps the carried
+        # filter state in order.
+        if s.package_size is not None and msg.data.shape[0] == s.package_size:
+            feats = await loop.run_in_executor(
+                self._executor, self._packet_features, msg.data)
+            if self._first:
+                feats = feats[self._extractor.warmup_frames(s.package_size):]
+                self._first = False
+        else:
+            feats = await loop.run_in_executor(
+                self._executor, self._block_features, msg.data)
+        yield self.OUTPUT, replace(msg, data=np.asarray(feats, np.float64),
+                                   fs=1 / s.window_shift)
+
+
+class FilterSpeechSegmentsSettings(Settings):
+    nb_features: int
+    fs: int
+    vad_architecture: Any
+    buffer_size: int
+    context_frames: int = 0
+    vad_weights_path: Optional[Path] = None
+    vad_parameters: Optional[dict] = None
+    device: Optional[str] = None  # None = cuda
+
+
+class FilterSpeechSegments(Unit):
+    """nVAD gate of the separate chain: LSTM inference per packet of
+    features with carried (h, c) and the argmax on the device, label
+    smoothing and segment assembly on the host; emits completed speech
+    segments with ``previous_frames`` set for the .lab log."""
+
+    SETTINGS: FilterSpeechSegmentsSettings
+    INPUT = InputStream(ClosedLoopMessage, maxsize=8)
+    OUTPUT = OutputStream(ClosedLoopMessage)
+
+    def initialize(self) -> None:
+        s = self.SETTINGS
+        self._device = resolve_device(s.device)
+        self._history = SpeechSegmentHistory(
+            nb_features=s.nb_features, buffer_size=s.buffer_size,
+            context=s.context_frames)
+        self._smoothing = VoiceActivityDetectionSmoothing(
+            nb_features=s.nb_features, context_frames=5)
+        self._model = _load_lstm(s.vad_architecture, s.vad_parameters,
+                                 s.vad_weights_path, False, "classifier",
+                                 self._device)
+        self._state = self._model.create_new_initial_state(1)
+        self._frame_counter = 0
+        self.step_ms: List[float] = []  # wall time of each device call
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._device.type == "cuda" else None)
+        # Warm both per-packet shapes (the warm-start first packet emits
+        # fewer frames than the steady state) on throwaway states.
+        with torch.no_grad(), torch.cuda.stream(self._stream):
+            for frames in (1, 4):
+                logits, _ = self._model(
+                    torch.zeros((1, frames, s.nb_features),
+                                device=self._device),
+                    self._model.create_new_initial_state(1))
+                torch.argmax(logits, dim=2).cpu()
+        self._executor = ThreadPoolExecutor(max_workers=1)
+
+    def shutdown(self) -> None:
+        self._executor.shutdown(wait=True)
+
+    def _vad_labels(self, data: np.ndarray) -> np.ndarray:
+        t0 = time.perf_counter()
+        with torch.no_grad(), torch.cuda.stream(self._stream):
+            x = torch.as_tensor(np.asarray(data, np.float32)[None]).to(
+                self._device)
+            logits, self._state = self._model(x, self._state)
+            labels = torch.argmax(logits, dim=2).cpu().numpy().ravel()
+        self._t_device_done = time.time()
+        self.step_ms.append((time.perf_counter() - t0) * 1000.0)
+        return labels
+
+    @subscriber(INPUT)
+    @publisher(OUTPUT)
+    async def process(self, msg: ClosedLoopMessage) -> AsyncGenerator:
+        t_dispatch = time.time()
+        predictions = await asyncio.get_running_loop().run_in_executor(
+            self._executor, self._vad_labels, msg.data)
+        data, predictions = self._smoothing.insert(
+            data=np.asarray(msg.data), speech_labels=predictions)
+        segments = self._history.insert(data=data, speech_labels=predictions)
+        self._frame_counter += len(msg.data)
+        for segment in segments:
+            previous_frames = (
+                self._frame_counter - len(segment)
+                - (len(msg.data) - int(np.count_nonzero(predictions))))
+            yield self.OUTPUT, _with_stamps(
+                msg, (("vad_dispatch", t_dispatch),
+                      ("vad_device_done", self._t_device_done),
+                      ("seg_close", time.time())),
+                data=segment, fs=100, previous_frames=previous_frames)
+# endregion
+
+
 # region Fused word path
 class FusedDecoderVocoderSettings(Settings):
-    """Bidirectional decode + neural vocoder (the ``net`` backend) per
-    word."""
+    """Bidirectional decode + vocoder per word."""
 
     path_to_model_weights: Optional[str]
     model: Any
     params: Optional[dict]
+    # "net": the neural vocoder (needs vocoder_weights), chunked emission;
+    # "dsp": the source-filter vocoder (kernel D1), the whole word at once.
+    vocoder_backend: str = "net"
     vocoder_weights: Optional[str] = None
     length_multiple: int = 50  # segment padding bucket (masked; exact)
     # Decoder segment lengths warmed at startup (2 * length_multiple too).
     prewarm_frames: Tuple[int, ...] = (50, 150, 200, 250, 300)
     # Ship the first 50-frame chunk of a word as soon as it is vocoded;
-    # later chunks follow as each lands.  Needs length_multiple % 50 == 0.
+    # later chunks follow as each lands.  Needs length_multiple % 50 == 0
+    # and the net backend.
     chunk_emission: bool = True
     # Online anti-crackle squelch (vocoder/net.py QUIET_C0).
     quiet_sharpen: bool = True
@@ -415,9 +622,15 @@ class FusedDecoderVocoderSettings(Settings):
 
 class FusedDecoderVocoder(Unit):
     """Decode one completed speech segment and vocode it.  The decoder's
-    state is fresh per segment; the vocoder's carries across segments.
-    Publishes decoded features on LPC (log.lpc tap), int16 audio chunks in
-    order on OUTPUT, and the whole word on WORD (wav tap)."""
+    state is fresh per segment; the vocoder's carries across segments,
+    through the repeat-padded tail of each bucket as well.  Publishes
+    decoded features on LPC (log.lpc tap), int16 audio chunks in order on
+    OUTPUT, and the whole word on WORD (wav tap).
+
+    Equivalent to RecurrentNeuralDecodingModel + DelayedLPCNetVocoder in
+    series at the same padding bucket.  With the dsp backend the word's
+    features and audio leave the device in one read (the JAX unit reads
+    the features back and vocodes from the host: two)."""
 
     SETTINGS: FusedDecoderVocoderSettings
     INPUT = InputStream(TimeSeriesMessage)
@@ -427,65 +640,67 @@ class FusedDecoderVocoder(Unit):
 
     def initialize(self) -> None:
         s = self.SETTINGS
-        if s.vocoder_weights is None:
+        if s.vocoder_backend not in ("dsp", "net"):
+            raise ValueError(f"Unknown vocoder backend: {s.vocoder_backend}")
+        self._dsp = s.vocoder_backend == "dsp"
+        if not self._dsp and s.vocoder_weights is None:
             raise ValueError("FusedDecoderVocoder needs vocoder_weights")
         self._device = resolve_device(s.device)
         self._model = _load_lstm(s.model, s.params, s.path_to_model_weights,
                                  True, "regressor", self._device)
-        self._voc_params = _load_params(s.vocoder_weights, self._device)
-        self._voc_model = LPCNetModel.from_params(self._voc_params)
-        self._sampler_w = sampler_weights_for(self._voc_model,
-                                              self._voc_params)
-        _pattern, kept = _sparse_pattern_of(self._voc_params)
-        logger.info(f"vocoder bunch {self._voc_model.bunch}; GRU-A mask "
-                    f"keeps {kept:.1%} of [16 x 128] tiles (the sampler "
-                    f"kernel reads only those)")
-        self._voc_state = net_vocoder_init(self._voc_model, batch=1,
-                                           device=self._device)
+        if not self._dsp:
+            self._voc_params = _load_params(s.vocoder_weights, self._device)
+            self._voc_model = LPCNetModel.from_params(self._voc_params)
+            self._sampler_w = sampler_weights_for(self._voc_model,
+                                                  self._voc_params)
+            _pattern, kept = _sparse_pattern_of(self._voc_params)
+            logger.info(f"vocoder bunch {self._voc_model.bunch}; GRU-A mask "
+                        f"keeps {kept:.1%} of [16 x 128] tiles (the sampler "
+                        f"kernel reads only those)")
+        self._voc_state = self._fresh_vocoder_state()
         self._chunk = COND_BLOCK
-        self._chunked = bool(s.chunk_emission) \
+        self._chunked = not self._dsp and bool(s.chunk_emission) \
             and s.length_multiple % COND_BLOCK == 0
         self.word_ms: List[float] = []  # segment in -> first audio read
-        # Warm the decoder at every bucket and the vocoder on one block
-        # (every chunk has the same 50-frame shape), on throwaway state.
+        # Warm the decoder at every bucket, on throwaway state.
         electrodes = self._model.nb_electrodes
+        buckets = sorted({2 * s.length_multiple, *(s.prewarm_frames or ())})
         # n - 1 valid frames: live words are rarely whole buckets, and the
         # padded (packed-sequence) LSTM path has its own cuDNN plans.
-        for n in sorted({2 * s.length_multiple, *(s.prewarm_frames or ())}):
+        for n in buckets:
             self._padded_features(np.zeros((n, electrodes), np.float32), n - 1)
-        state = net_vocoder_init(self._voc_model, batch=1, device=self._device)
-        self._vocode(state, torch.zeros((1, self._chunk, 20),
-                                        device=self._device))[0].cpu()
+        # The vocoder: net on one block (every chunk has the same 50-frame
+        # shape); dsp at every bucket (the frame-rate part's inverse FFT
+        # has a cuFFT plan per frame count), as the JAX unit warms it.
+        for n in (buckets if self._dsp else (self._chunk,)):
+            self._vocode(self._fresh_vocoder_state(),
+                         torch.zeros((1, n, 20), device=self._device)
+                         )[0].cpu()
         self._executor = ThreadPoolExecutor(max_workers=1)
+
+    def _fresh_vocoder_state(self):
+        if self._dsp:  # LPCNet(backend="dsp", seed=0)'s stream
+            return dsp_vocoder_init(0, 1, self._device)
+        return net_vocoder_init(self._voc_model, batch=1, device=self._device)
 
     def shutdown(self) -> None:
         self._executor.shutdown(wait=True)
 
-    @torch.no_grad()
     def _padded_features(self, data: np.ndarray, T: int):
-        """Decode ``data`` [T, E] padded to the bucket: returns (pred
-        [1, T, F] of the valid frames, feats [1, Tp, F] whose padded tail
-        repeats the last valid frame — the vocoder then never consumes
-        padding garbage)."""
-        mult = self.SETTINGS.length_multiple
-        Tp = -(-T // mult) * mult
-        x = torch.zeros((1, Tp, data.shape[1]))
-        x[0, :T] = torch.as_tensor(data[:T])
-        mask = torch.zeros((1, Tp))
-        mask[0, :T] = 1.0
-        pred, _ = self._model(x.to(self._device), mask=mask)
-        feats = pred.clone()
-        feats[:, T:] = pred[:, T - 1:T]
-        return pred[:, :T], feats
+        return _decode_padded(self._model, data, T,
+                              self.SETTINGS.length_multiple, self._device)
 
     def _vocode(self, state, feats):
-        """Neural vocoder on feats [1, n, 20] -> (int16 PCM as packed f32
-        pairs, new state); the clip -> truncate conversion of the
-        reference's int16 sink."""
-        pcm, state = net_synthesize_frames(
-            self._voc_model, self._voc_params, state, feats,
-            quiet_sharpen=self.SETTINGS.quiet_sharpen,
-            sampler_weights=self._sampler_w)
+        """Vocoder on feats [1, n, 20] -> (int16 PCM as packed f32 pairs,
+        new state); the clip -> truncate conversion of the reference's
+        int16 sink."""
+        if self._dsp:
+            pcm, state = dsp_synthesize_frames(state, feats)
+        else:
+            pcm, state = net_synthesize_frames(
+                self._voc_model, self._voc_params, state, feats,
+                quiet_sharpen=self.SETTINGS.quiet_sharpen,
+                sampler_weights=self._sampler_w)
         pcm16 = torch.clamp(pcm.reshape(-1) * 32767.0, -32768, 32767
                             ).to(torch.int16)
         return pcm16.view(torch.float32), state
@@ -584,15 +799,154 @@ class FusedDecoderVocoder(Unit):
 # endregion
 
 
-# region Output unit
-class DelayedStdoutForSoX(Unit):
-    """Write int16 PCM to stdout for ``play -t raw -r 16000 ...``, and log
-    each word's ingest->audio latency (p50 at shutdown)."""
+# region Separate word path
+class RecurrentNeuralDecodingModelSettings(Settings):
+    path_to_model_weights: Optional[str]
+    model: Any
+    params: Optional[dict]
+    length_multiple: int = 50  # segment padding bucket (masked; exact)
+    # Segment lengths warmed at startup (2 * length_multiple too).
+    prewarm_frames: Tuple[int, ...] = (50, 150, 200, 250, 300)
+    device: Optional[str] = None  # None = cuda
 
+
+class RecurrentNeuralDecodingModel(Unit):
+    """Decode one complete speech segment per message into float32
+    acoustic features; the state is fresh per segment (reference
+    local/units.py:507)."""
+
+    SETTINGS: RecurrentNeuralDecodingModelSettings
+    INPUT = InputStream(TimeSeriesMessage)
+    OUTPUT = OutputStream(TimeSeriesMessage)
+
+    def initialize(self) -> None:
+        s = self.SETTINGS
+        self._device = resolve_device(s.device)
+        self._model = _load_lstm(s.model, s.params, s.path_to_model_weights,
+                                 True, "regressor", self._device)
+        self.decode_ms: List[float] = []  # wall time of each segment
+        # Warm every bucket on padded lengths (n - 1 valid frames: the
+        # packed LSTM path has its own cuDNN plans).
+        electrodes = self._model.nb_electrodes
+        for n in sorted({2 * s.length_multiple, *(s.prewarm_frames or ())}):
+            _decode_padded(self._model, np.zeros((n, electrodes), np.float32),
+                           n - 1, s.length_multiple, self._device)
+        self._executor = ThreadPoolExecutor(max_workers=1)
+
+    def shutdown(self) -> None:
+        self._executor.shutdown(wait=True)
+
+    def _decode(self, data: np.ndarray) -> np.ndarray:
+        t0 = time.perf_counter()
+        pred, _ = _decode_padded(self._model, data, len(data),
+                                 self.SETTINGS.length_multiple, self._device)
+        out = pred[0].cpu().numpy()
+        self.decode_ms.append((time.perf_counter() - t0) * 1000.0)
+        return out
+
+    @subscriber(INPUT)
+    @publisher(OUTPUT)
+    async def decode(self, msg: TimeSeriesMessage) -> AsyncGenerator:
+        t_dispatch = time.time()
+        # Off the event loop; one worker keeps segments in order.
+        predictions = await asyncio.get_running_loop().run_in_executor(
+            self._executor, self._decode, np.asarray(msg.data, np.float32))
+        yield self.OUTPUT, _with_stamps(
+            msg, (("dec_dispatch", t_dispatch),
+                  ("dec_device_done", time.time())),
+            data=predictions, fs=100)
+
+
+class DelayedLPCNetVocoderSettings(Settings):
+    backend: str = "dsp"
+    weights: Optional[str] = None
+    length_multiple: int = 10  # frame-count bucket, repeat-padded
+    # Frame counts synthesized at startup on a throwaway state (net only,
+    # as the JAX unit).
+    prewarm_frames: Tuple[int, ...] = (100, 200, 300)
+    device: Optional[str] = None  # None = cuda
+
+
+class DelayedLPCNetVocoder(Unit):
+    """Synthesize a whole decoded segment in one vocoder call.  The frames
+    are repeat-padded to the bucket and the audio trimmed; the vocoder
+    state carries across words, padded frames included, as in JAX."""
+
+    SETTINGS: Optional[DelayedLPCNetVocoderSettings]
+    INPUT = InputStream(TimeSeriesMessage)
+    OUTPUT = OutputStream(TimeSeriesMessage)
+
+    def initialize(self) -> None:
+        s = self.SETTINGS or DelayedLPCNetVocoderSettings()
+        self._length_multiple = s.length_multiple
+        self._lpcnet = LPCNet(backend=s.backend, weights=s.weights,
+                              device=s.device)
+        self.vocode_ms: List[float] = []  # wall time of each word
+        if s.backend != "dsp":
+            for n in s.prewarm_frames or ():
+                self._lpcnet.warm(n)
+        self._executor = ThreadPoolExecutor(max_workers=1)
+
+    def shutdown(self) -> None:
+        self._executor.shutdown(wait=True)
+        del self._lpcnet
+
+    def _synthesize(self, features: np.ndarray, T: int) -> np.ndarray:
+        t0 = time.perf_counter()
+        pcm = self._lpcnet.synthesize_frames(features)[: T * FRAME_SIZE]
+        self.vocode_ms.append((time.perf_counter() - t0) * 1000.0)
+        return pcm
+
+    @subscriber(INPUT)
+    @publisher(OUTPUT)
+    async def synthesize(self, msg: TimeSeriesMessage) -> AsyncGenerator:
+        features = np.asarray(msg.data, np.float32)
+        T = len(features)
+        mult = self._length_multiple
+        Tp = -(-T // mult) * mult
+        if Tp != T:
+            features = np.concatenate(
+                [features, np.repeat(features[-1:], Tp - T, axis=0)], axis=0)
+        t_dispatch = time.time()
+        acoustic = await asyncio.get_running_loop().run_in_executor(
+            self._executor, self._synthesize, features, T)
+        yield self.OUTPUT, _with_stamps(
+            msg, (("voc_dispatch", t_dispatch),
+                  ("voc_device_done", time.time())),
+            data=acoustic, fs=16000)
+# endregion
+
+
+# region Output unit
+class SoXOutputSettings(Settings):
+    """Latency-budget reporting of the audio sink.
+
+    ``budget_path``: where the per-stage p50/p95 budget is written as JSON
+    at shutdown.  ``stall_threshold_ms``: a word whose total exceeds it is
+    counted as a stall.  (The JAX sink also attributes a tunneled device's
+    round-trip floor, ``rpc_floor_ms``; a locally attached card has no
+    tunnel, and the port leaves it out.)"""
+
+    budget_path: Optional[str] = None
+    stall_threshold_ms: float = 1000.0
+
+
+class DelayedStdoutForSoX(Unit):
+    """Write int16 PCM to stdout for ``play -t raw -r 16000 ...``.
+
+    Also the closed loop's latency probe: each word's ``received_at``
+    (set at ingest) gives its ingest->audio time, and the stages' stamps
+    along the path split it into a budget, aggregated as p50/p95 at
+    shutdown (logged, ``self.budget``, and ``budget_path``)."""
+
+    SETTINGS: Optional[SoXOutputSettings]
     INPUT = InputStream(ClosedLoopMessage)
 
     def initialize(self) -> None:
         self.latencies_ms: List[float] = []
+        self.completions_ms: List[float] = []
+        self.budget: Optional[dict] = None
+        self._budget_rows: List[dict] = []
 
     @subscriber(INPUT)
     async def print(self, msg: ClosedLoopMessage) -> None:
@@ -600,19 +954,68 @@ class DelayedStdoutForSoX(Unit):
         sys.stdout.flush()
         if getattr(msg, "received_at", None) is None:
             return  # interior audio chunk of a word
-        latency_ms = (time.time() - msg.received_at) * 1000.0
-        if any(name == "dv_word_complete"
-               for name, _ in getattr(msg, "stamps", ())):
+        now = time.time()
+        latency_ms = (now - msg.received_at) * 1000.0
+        stamps = tuple(getattr(msg, "stamps", ()) or ())
+        if any(name == "dv_word_complete" for name, _ in stamps):
+            # Last chunk of a chunked word: a completion, not a new word.
+            self.completions_ms.append(latency_ms)
             logger.info(f"word complete: ingest->last_audio "
                         f"{latency_ms:.1f} ms")
             return
         self.latencies_ms.append(latency_ms)
         logger.info(f"segment audio out: {len(msg.data)} samples, "
                     f"ingest->audio {latency_ms:.1f} ms")
+        if stamps:
+            row, prev_name, prev_t = {}, "ingest", msg.received_at
+            for name, t in stamps + (("audio_out", now),):
+                row[f"{prev_name}->{name}"] = (t - prev_t) * 1000.0
+                prev_name, prev_t = name, t
+            row["total"] = latency_ms
+            self._budget_rows.append(row)
 
     def shutdown(self) -> None:
         if self.latencies_ms:
             logger.info(f"ingest->audio latency over {len(self.latencies_ms)}"
                         f" segments: p50 "
                         f"{float(np.percentile(self.latencies_ms, 50)):.1f} ms")
+        if not self._budget_rows:
+            return
+        s = self.SETTINGS or SoXOutputSettings()
+        rows = self._budget_rows
+        stall_ms = float(s.stall_threshold_ms)
+        stalls = [r for r in rows if r["total"] > stall_ms]
+        # Stage keys in path order from the first row (a run's wiring is
+        # the same for every word).
+        keys = [k for k in rows[0] if k != "total"]
+        table = {}
+        for k in keys + ["total"]:
+            vals = [r[k] for r in rows if k in r]
+            table[k] = {"p50": float(np.percentile(vals, 50)),
+                        "p95": float(np.percentile(vals, 95)),
+                        "n": len(vals)}
+        lines = [f"latency budget over {len(rows)} words (ms, p50/p95):"]
+        lines += [f"  {k:<32s} {table[k]['p50']:7.1f} / "
+                  f"{table[k]['p95']:7.1f}" for k in keys + ["total"]]
+        n_rpc = sum(1 for k in keys if k.endswith("_device_done"))
+        report = {"n_words": len(rows), "stages": table,
+                  "device_round_trips_per_word": n_rpc,
+                  "stall_threshold_ms": stall_ms,
+                  "stall_count": len(stalls)}
+        if self.completions_ms:
+            report["word_complete"] = {
+                "p50": float(np.percentile(self.completions_ms, 50)),
+                "p95": float(np.percentile(self.completions_ms, 95)),
+                "n": len(self.completions_ms)}
+            lines.append(
+                f"  word complete (last chunk)      "
+                f"{report['word_complete']['p50']:7.1f} / "
+                f"{report['word_complete']['p95']:7.1f}   "
+                f"(n={len(self.completions_ms)}; multi-chunk words only)")
+        lines.append(f"  {len(stalls)} stall(s) > {stall_ms:.0f} ms")
+        logger.info("\n".join(lines))
+        self.budget = report
+        if s.budget_path:
+            with open(s.budget_path, "w") as fd:
+                json.dump(report, fd, indent=1)
 # endregion

@@ -1,11 +1,12 @@
 """LPCNet-equivalent vocoder subsystem of the port (counterpart of
 dss_tpu/vocoder/): the 20-feature frame interface (18 Bark-scale cepstra,
 pitch period, pitch correlation) producing 160 samples of 16 kHz int16 PCM
-per 10 ms frame, through the neural autoregressive vocoder (net.py) whose
-sample loop runs in the CUDA sampler kernel (ops/sampler.py).
+per 10 ms frame, through the source-filter DSP vocoder (dsp.py, its sample
+loop in kernel D1, ops/dsp_synthesis.py) or the neural autoregressive
+vocoder (net.py, its sample loop in the sampler kernel, ops/sampler.py);
+and the feature encoder (features.py) that turns PCM into those features.
 
-Not ported yet: the source-filter DSP vocoder (dsp.py), the feature
-encoder (features.py) and checkpoint interop (interop.py).
+Not ported yet: checkpoint interop (interop.py).
 """
 
 import os
@@ -14,6 +15,8 @@ from .mulaw import MULAW_LEVELS, mulaw_decode, mulaw_encode
 from .lpc import FRAME_SIZE, LPC_ORDER, NB_BANDS, NB_FEATURES, \
     bands_from_cepstrum, lpc_from_bands
 from .net import LPCNetModel
+from .dsp import LPCVocoder
+from .features import LPCFeatureEncoder
 from .lpcnet import BatchedLPCNet, LPCFeatureFile, LPCNet
 
 
@@ -52,6 +55,8 @@ __all__ = [
     "packaged_weights",
     "packaged_weights_bunched",
     "LPCNetModel",
+    "LPCFeatureEncoder",
+    "LPCVocoder",
     "LPCNet",
     "BatchedLPCNet",
     "LPCFeatureFile",

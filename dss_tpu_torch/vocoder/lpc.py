@@ -1,4 +1,6 @@
-"""Cepstrum -> band energies -> LPC (counterpart of dss_tpu/vocoder/lpc.py).
+"""Band energies, cepstra and LPC (counterpart of dss_tpu/vocoder/lpc.py):
+spectrum -> bands -> cepstrum for the feature encoder, cepstrum -> bands ->
+PSD -> autocorrelation -> LPC for the vocoders.
 
 The band and DCT matrices are built in numpy on the host, exactly as the
 reference defines them; the math runs batched in torch over any leading
@@ -80,10 +82,34 @@ def _const(name: str, like: torch.Tensor) -> torch.Tensor:
                            lambda: globals()[name])
 
 
+def band_energies(spectrum_sq: torch.Tensor) -> torch.Tensor:
+    """|X(f)|^2 [.., FREQ_SIZE] -> band energies [.., NB_BANDS]."""
+    return spectrum_sq @ _const("BAND_MATRIX", spectrum_sq).T
+
+
+def psd_from_bands(bands: torch.Tensor) -> torch.Tensor:
+    """Band energies -> interpolated linear-frequency PSD [.., FREQ_SIZE]."""
+    return bands @ _const("BAND_MATRIX", bands)
+
+
+def cepstrum_from_bands(bands: torch.Tensor, floor: float = 1e-9
+                        ) -> torch.Tensor:
+    """Band energies [.., NB_BANDS] -> cepstrum (DCT of log10 energies)."""
+    return torch.log10(bands + floor) @ _const("DCT_MATRIX", bands).T
+
+
 def bands_from_cepstrum(cepstrum: torch.Tensor) -> torch.Tensor:
     """[.., NB_BANDS] cepstrum -> band energies."""
     logE = cepstrum @ _const("DCT_MATRIX", cepstrum)
     return torch.pow(10.0, logE)
+
+
+def autocorr_from_psd(psd: torch.Tensor, order: int = LPC_ORDER
+                      ) -> torch.Tensor:
+    """PSD [.., FREQ_SIZE] -> lag-windowed autocorrelation r[.., 0..order]
+    (inverse real FFT)."""
+    r = torch.fft.irfft(psd, n=WINDOW_SIZE)[..., : order + 1]
+    return r * _const("LAG_WINDOW", r)[: order + 1]
 
 
 def levinson(r: torch.Tensor, order: int = LPC_ORDER):
@@ -107,6 +133,54 @@ def levinson(r: torch.Tensor, order: int = LPC_ORDER):
 
 def lpc_from_bands(bands: torch.Tensor):
     """Band energies [.., NB_BANDS] -> (lpc [.., LPC_ORDER], residual)."""
-    psd = bands @ _const("BAND_MATRIX", bands)
-    r = torch.fft.irfft(psd, n=WINDOW_SIZE)[..., : LPC_ORDER + 1]
+    return levinson(autocorr_from_psd(psd_from_bands(bands)))
+
+
+def lpc_from_cepstrum(cepstrum: torch.Tensor):
+    """Cepstrum [.., NB_BANDS] -> (lpc [.., LPC_ORDER], residual)."""
+    return lpc_from_bands(bands_from_cepstrum(cepstrum))
+
+
+def _irfft_lags() -> np.ndarray:
+    """[FREQ_SIZE, LPC_ORDER + 1]: lags 0..LPC_ORDER of the inverse real
+    FFT of length WINDOW_SIZE as a product, r = psd @ C."""
+    f = np.arange(FREQ_SIZE)[:, None]
+    k = np.arange(LPC_ORDER + 1)[None, :]
+    weight = np.where((f == 0) | (f == FREQ_SIZE - 1), 1.0, 2.0)
+    return weight * np.cos(2.0 * np.pi * f * k / WINDOW_SIZE) / WINDOW_SIZE
+
+
+IRFFT_LAGS = _irfft_lags()
+# The DCT's inverse with 14 zero columns: 32 log energies a frame.
+DCT_MATRIX_32 = np.pad(DCT_MATRIX, ((0, 0), (0, 32 - NB_BANDS)))
+
+
+def _rowwise_matmul(x: torch.Tensor, name: str) -> torch.Tensor:
+    """x [.., K] @ the constant ``name`` [K, N], every output summed over K
+    as a fixed pairwise tree of elementwise adds: a row's result does not
+    depend on how many rows share the call (a library product or FFT may
+    pick another summation order for another batch size)."""
+    prod = x[..., :, None] * _const(name, x)               # [.., K, N]
+    K = prod.shape[-2]
+    pad = (1 << (K - 1).bit_length()) - K
+    if pad:
+        prod = torch.cat([prod, prod.new_zeros(
+            prod.shape[:-2] + (pad, prod.shape[-1]))], dim=-2)
+    while prod.shape[-2] > 1:
+        prod = prod[..., 0::2, :] + prod[..., 1::2, :]
+    return prod[..., 0, :]
+
+
+def lpc_from_cepstrum_framewise(cepstrum: torch.Tensor):
+    """``lpc_from_cepstrum`` with each frame's arithmetic independent of the
+    other frames of the call, so that the DSP vocoder's chunked calls equal
+    one call bit for bit: products as ``_rowwise_matmul``, the inverse FFT
+    as a product for the 17 lags it needs, Levinson elementwise, and the
+    power of ten over 32 values a frame (a vectorized CPU loop then leaves
+    no frame's values to its scalar tail, which rounds ``pow`` otherwise).
+    Equal to ``lpc_from_cepstrum`` up to f32 rounding."""
+    bands = torch.pow(10.0, _rowwise_matmul(cepstrum, "DCT_MATRIX_32")
+                      )[..., :NB_BANDS]
+    psd = _rowwise_matmul(bands, "BAND_MATRIX")
+    r = _rowwise_matmul(psd, "IRFFT_LAGS")
     return levinson(r * _const("LAG_WINDOW", r))

@@ -7,14 +7,16 @@
   stream;
 * ``LPCFeatureFile`` — iterator over LPCNet ``.f32`` feature dumps.
 
-Only ``backend="net"`` (the neural sample-rate network) is ported, and it
-needs ``weights`` (an ``.npz`` path or a dict of arrays; see
+Two backends: ``backend="dsp"``, the weight-free source-filter vocoder
+(vocoder/dsp.py; its sample loop is kernel D1 on the card, all streams in
+one launch, stream i seeded ``seed + i`` as the JAX package's per-stream
+``LPCVocoder(seed + i)``), and ``backend="net"``, the neural sample-rate
+network, which needs ``weights`` (an ``.npz`` path or a dict of arrays; see
 ``packaged_weights`` in this package): the bunch is read from the
-checkpoint, so bunched checkpoints load like any other.  ``backend="dsp"``
-raises ``NotImplementedError`` until vocoder/dsp.py is ported (ROADMAP.md,
-queue 1).  There is one sampler per device, so the JAX package's
-``use_pallas`` switch has no counterpart.  Both classes run on the card
-unless ``device`` says otherwise.
+checkpoint, so bunched checkpoints load like any other.  There is one
+sampler per device, so the JAX package's ``use_pallas`` switch has no
+counterpart.  Both classes run on the card unless ``device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import sampler as _sampler  # the module: see vocoder/net.py
+from .dsp import dsp_synthesize_frames, dsp_vocoder_init, to_int16
 from .lpc import FRAME_SIZE, NB_FEATURES
 from .net import LPCNetModel, net_synthesize_frames, net_vocoder_init, \
     sampler_weights_for
@@ -53,27 +56,17 @@ def _sparse_pattern_of(params):
         params["gru_a_mask"].detach().cpu().numpy())
 
 
-def _to_int16(pcm: torch.Tensor) -> np.ndarray:
-    """Float PCM in [-1, 1] -> int16 by scale, clip and truncation (the
-    reference's conversion), converted on the tensor's device."""
-    return torch.clamp(pcm * 32767.0, -32768, 32767).to(torch.int16) \
-        .cpu().numpy()
-
-
-class _NetVocoder:
-    """What the two public classes share: checkpoint, model, prepared
-    sampler weights, carried state and the synthesis call."""
+class _Vocoder:
+    """What the two public classes share: the backend, for ``net`` its
+    checkpoint, model and prepared sampler weights, the carried state and
+    the synthesis call."""
 
     def __init__(self, batch: int, backend: str, weights,
                  model: Optional[LPCNetModel], seed: int,
                  temperature_scale: float, quiet_sharpen: bool, device):
         if backend not in ("dsp", "net"):
             raise ValueError(f"Unknown vocoder backend: {backend}")
-        if backend == "dsp":
-            raise NotImplementedError(
-                "backend='dsp': the source-filter vocoder (vocoder/dsp.py) "
-                "is not ported yet (ROADMAP.md, queue 1); use backend='net'")
-        if weights is None:
+        if backend == "net" and weights is None:
             raise ValueError(
                 "backend='net' needs weights: an .npz path or a dict of "
                 "arrays, e.g. dss_tpu_torch.vocoder.packaged_weights()")
@@ -86,13 +79,16 @@ class _NetVocoder:
         # off by default for offline scoring.
         self.quiet_sharpen = bool(quiet_sharpen)
         self._seed = seed
-        self._params = _load_params(weights, self.device)
-        self._model = model if model is not None \
-            else LPCNetModel.from_params(self._params)
-        self._sampler_w = sampler_weights_for(self._model, self._params)
+        if backend == "net":
+            self._params = _load_params(weights, self.device)
+            self._model = model if model is not None \
+                else LPCNetModel.from_params(self._params)
+            self._sampler_w = sampler_weights_for(self._model, self._params)
         self._state = self._fresh_state()
 
     def _fresh_state(self):
+        if self.backend == "dsp":
+            return dsp_vocoder_init(self._seed, self.batch, self.device)
         return net_vocoder_init(self._model, batch=self.batch,
                                 seed=self._seed, device=self.device)
 
@@ -100,6 +96,8 @@ class _NetVocoder:
         """features [batch, T, 20] -> (float PCM [batch, T*160], state)."""
         feats = torch.as_tensor(np.asarray(features, np.float32)).to(
             self.device)
+        if self.backend == "dsp":
+            return dsp_synthesize_frames(state, feats)
         return net_synthesize_frames(
             self._model, self._params, state, feats,
             temperature_scale=self.temperature_scale,
@@ -107,7 +105,7 @@ class _NetVocoder:
             sampler_weights=self._sampler_w)
 
 
-class LPCNet(_NetVocoder):
+class LPCNet(_Vocoder):
     """Single-stream vocoder with the reference's frame API."""
 
     LPCNET_FRAME_SIZE = FRAME_SIZE
@@ -131,7 +129,7 @@ class LPCNet(_NetVocoder):
         """features [T, 20] -> int16 [T*160]."""
         pcm, self._state = self._run(
             self._state, np.asarray(features, np.float32)[None])
-        return _to_int16(pcm[0])
+        return to_int16(pcm[0])
 
     def warm(self, n_frames: int) -> None:
         """Run an ``n_frames`` synthesis on a throwaway state (builds and
@@ -142,9 +140,10 @@ class LPCNet(_NetVocoder):
         pcm.cpu()
 
 
-class BatchedLPCNet(_NetVocoder):
-    """N-stream parallel vocoder: one call advances all streams, each on
-    its own thread block of the sampler kernel."""
+class BatchedLPCNet(_Vocoder):
+    """N-stream parallel vocoder: one call advances all streams in one
+    launch (net: a cluster of the sampler kernel per stream; dsp: a warp of
+    D1 per stream)."""
 
     def __init__(self, batch: int, backend: str = "net", weights=None,
                  model: Optional[LPCNetModel] = None, seed: int = 0,
@@ -163,7 +162,7 @@ class BatchedLPCNet(_NetVocoder):
             raise ValueError(f"expected {self.batch} streams, got "
                              f"{features.shape[0]}")
         pcm, self._state = self._run(self._state, features)
-        return _to_int16(pcm)
+        return to_int16(pcm)
 
 
 class LPCFeatureFile:

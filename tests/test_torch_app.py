@@ -30,19 +30,65 @@ def _ini(tmp_path, **overrides):
     return str(path)
 
 
-def test_debug_ini_with_dsp_backend_is_refused():
-    """The shipped debug INI selects the DSP vocoder, which is not ported:
-    the port says so instead of running something else."""
-    with pytest.raises(ValueError, match="vocoder_backend"):
-        build_settings(str(DEBUG_INI), "run")
+@pytest.mark.parametrize("device, fused_frontend, fused_decoder, units", [
+    # auto, as the shipped INI says: the separate chain on the CPU; on the
+    # card a fused packet path, and a separate word path for dsp.
+    ("cpu", "auto", "auto", ("FEATURE_EXTRACTOR", "SPEECH_FILTER",
+                             "DECODING_MODEL", "WAVEFORM_GENERATOR")),
+    ("cuda", "auto", "auto", ("FUSED_FRONTEND", "DECODING_MODEL",
+                              "WAVEFORM_GENERATOR")),
+    ("cpu", "true", "false", ("FUSED_FRONTEND", "DECODING_MODEL",
+                              "WAVEFORM_GENERATOR")),
+    ("cpu", "false", "true", ("FEATURE_EXTRACTOR", "SPEECH_FILTER",
+                              "DECODE_VOCODE")),
+    ("cpu", "true", "true", ("FUSED_FRONTEND", "DECODE_VOCODE")),
+    ("cpu", "false", "false", ("FEATURE_EXTRACTOR", "SPEECH_FILTER",
+                               "DECODING_MODEL", "WAVEFORM_GENERATOR")),
+])
+def test_debug_ini_builds_the_shipped_configuration(tmp_path, device,
+                                                    fused_frontend,
+                                                    fused_decoder, units):
+    """The shipped debug INI (vocoder_backend = dsp) builds its system:
+    the fused_* switches pick the units as the JAX app does (auto: fused
+    packet path on cuda; fused word path only on cuda with net, so never
+    with dsp), the others are removed, every edge joins two present units,
+    and the vocoder is the weight-free dsp one.  The "cuda" settings are
+    built on the CPU: nothing touches a device before the units start."""
+    ini = str(DEBUG_INI) if fused_frontend == fused_decoder == "auto" \
+        else _ini(tmp_path, fused_frontend=fused_frontend,
+                  fused_decoder=fused_decoder)
+    s = build_settings(ini, "run", device=device)
+    assert s.vocoder_backend == "dsp" and s.vocoder_weights is None
+    assert s.fused_frontend == ("FUSED_FRONTEND" in units)
+    assert s.fused_decoder == ("DECODE_VOCODE" in units)
+    system = Neuroprosthesis(s)
+    system.configure()
+    optional = {"FEATURE_EXTRACTOR", "SPEECH_FILTER", "FUSED_FRONTEND",
+                "DECODING_MODEL", "WAVEFORM_GENERATOR", "DECODE_VOCODE"}
+    present = {n for n in optional if n in vars(system)}
+    assert present == set(units)
+    alive = set(map(id, system.units()))
+    edges = system.network()
+    assert len(edges) == (4 if s.fused_frontend else 5) + \
+        (4 if s.fused_decoder else 5)
+    for a, b in edges:
+        assert id(a.unit) in alive and id(b.unit) in alive
+    if s.fused_decoder:
+        assert system.DECODE_VOCODE.SETTINGS.vocoder_backend == "dsp"
+    else:
+        assert system.WAVEFORM_GENERATOR.SETTINGS.backend == "dsp"
+        assert system.WAVEFORM_GENERATOR.SETTINGS.device == device
+    assert system.LOUDSPEAKER.SETTINGS.budget_path.endswith(
+        "latency_budget.json")
 
 
 def test_ini_with_net_backend_builds_the_fused_system(tmp_path):
-    """With vocoder_backend = net the settings carry the INI's values, the
-    shipped flagship vocoder by default, and the system wires the fused
-    units and every log tap."""
+    """With vocoder_backend = net and both fused_* switches true, the
+    settings carry the INI's values, the shipped flagship vocoder by
+    default, and the system wires the fused units and every log tap."""
     s = build_settings(_ini(tmp_path, vocoder_backend="net",
-                            segment_prewarm_frames="[50, 100]"),
+                            segment_prewarm_frames="[50, 100]",
+                            fused_frontend="true", fused_decoder="true"),
                        "run", device="cpu")
     assert (s.fs, s.package_size, s.port) == (1000, 40, 5556)
     assert s.vocoder_weights == str(PACKAGED_VOCODER)
@@ -67,7 +113,8 @@ def test_ini_with_a_bunched_checkpoint_runs_the_bunched_vocoder(tmp_path):
     weights = str(REPO / "weights" / "vocoder_speech_b8.npz")
     s = build_settings(_ini(tmp_path, vocoder_backend="net",
                             vocoder_weights=weights,
-                            segment_prewarm_frames="[]"),
+                            segment_prewarm_frames="[]",
+                            fused_decoder="true"),
                        "run", device="cpu")
     assert s.vocoder_weights == weights
     system = Neuroprosthesis(s)

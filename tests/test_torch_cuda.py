@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from dss_tpu_torch.device import resolve_device
+from dss_tpu_torch.ops.dsp_synthesis import DspCarry, dsp_synthesis, \
+    dsp_synthesis_plain
 from dss_tpu_torch.ops import hga as thga
 from dss_tpu_torch.ops.filter_log_power import filter_log_power, \
     filter_log_power_plain
@@ -25,6 +27,7 @@ from dss_tpu_torch.ops.log_power import log_power, log_power_plain
 from dss_tpu_torch.ops.sampler import kernel_plan, \
     prepare_bunched_sampler_weights, prepare_sampler_weights, sampler_frames, sampler_frames_bunched, \
     sampler_frames_bunched_plain, sampler_frames_plain
+from dss_tpu_torch.vocoder import dsp as tdsp
 from dss_tpu_torch.vocoder import net as tnet
 from dss_tpu_torch.vocoder.lpc import bands_from_cepstrum, lpc_from_bands
 from dss_tpu_torch.vocoder.lpcnet import _load_params
@@ -371,3 +374,75 @@ def test_bunched_chunked_equals_single_shot_on_the_card(dev, bunch):
     p2, _ = tnet.net_synthesize_frames(model, params, s1, feats[:, 50:],
                                        sampler_weights=w)
     assert torch.equal(torch.cat([p1, p2], dim=1), whole)
+
+
+def _d1_inputs(batch, frames, seed):
+    """Seeded inputs of the DSP vocoder's sample loop (D1) on the CPU:
+    features with voiced and unvoiced frames and periods 32-256 through
+    the frame-rate part, Gaussian noise, and a nonzero carried state."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(batch, frames, 20)).astype(np.float32) * 0.3
+    feats[..., 0] -= 2.0
+    feats[..., 18] = rng.uniform(-1.36, 3.12, size=(batch, frames))
+    feats[..., 19] = np.where(rng.random((batch, frames)) < 0.6,
+                              rng.uniform(0.0, 0.5, (batch, frames)),
+                              rng.uniform(-0.5, -0.2, (batch, frames)))
+    params = tdsp.frame_parameters(torch.as_tensor(feats))
+    noise = torch.as_tensor(rng.normal(size=(batch, frames, 160))
+                            .astype(np.float32))
+    carry = DspCarry(
+        torch.as_tensor(rng.normal(size=(batch, 16)).astype(np.float32)) * .1,
+        torch.as_tensor(rng.integers(-3, 200, batch).astype(np.int32)),
+        torch.as_tensor(rng.normal(size=batch).astype(np.float32)) * 0.1)
+    return (*params, noise), carry
+
+
+@pytest.mark.parametrize("batch, frames", [(1, 260), (8, 50), (1, 1),
+                                           (3, 7)])
+def test_dsp_synthesis_kernel_matches_plain(dev, batch, frames):
+    """D1 against its plain version (run on the CPU) on the same inputs:
+    pcm, sig_mem, pitch phase and de-emphasis memory bit for bit (both
+    round every operation once, in the same order), one launch."""
+    inputs, carry = _d1_inputs(batch, frames, frames)
+    before = dsp_synthesis.launches
+    pcm, out = dsp_synthesis(*(t.to(dev) for t in inputs),
+                             DspCarry(*(t.to(dev) for t in carry)))
+    torch.cuda.synchronize()
+    assert dsp_synthesis.launches == before + 1
+    want, want_out = dsp_synthesis_plain(*inputs, carry)
+    assert pcm.shape == (batch, frames * 160)
+    assert torch.equal(pcm.cpu(), want)
+    for a, b in zip(out, want_out):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_dsp_vocoder_chunked_equals_single_shot_on_the_card(dev):
+    """Through D1 with the vocoder's own noise, 100 frames in one call
+    equal 50 + 50 bit for bit, pcm and state, on two streams."""
+    rng = np.random.default_rng(5)
+    feats = rng.normal(size=(2, 100, 20)).astype(np.float32) * 0.3
+    feats[..., 19] = 0.3
+    feats = torch.as_tensor(feats, device=dev)
+    st = tdsp.dsp_vocoder_init(4, 2, dev)
+    whole, s_whole = tdsp.dsp_synthesize_frames(st, feats)
+    p1, s1 = tdsp.dsp_synthesize_frames(st, feats[:, :50])
+    p2, s2 = tdsp.dsp_synthesize_frames(s1, feats[:, 50:])
+    assert torch.equal(torch.cat([p1, p2], dim=1), whole)
+    for a, b in zip(s2[:3], s_whole[:3]):
+        assert torch.equal(a, b)
+    assert s2.frame_ctr == s_whole.frame_ctr == 100
+
+
+def test_dsp_synthesis_kernel_refuses_what_it_does_not_take(dev):
+    """On CUDA tensors D1 launches or raises: float64 noise, an int64
+    period and a noise frame of the wrong length are refused."""
+    inputs, carry = _d1_inputs(1, 3, 0)
+    lpc, gain, v_mix, voiced, period, noise = (t.to(dev) for t in inputs)
+    carry = DspCarry(*(t.to(dev) for t in carry))
+    with pytest.raises(TypeError):
+        dsp_synthesis(lpc, gain, v_mix, voiced, period, noise.double(), carry)
+    with pytest.raises(TypeError):
+        dsp_synthesis(lpc, gain, v_mix, voiced, period.long(), noise, carry)
+    with pytest.raises(ValueError):
+        dsp_synthesis(lpc, gain, v_mix, voiced, period, noise[..., :80],
+                      carry)

@@ -156,14 +156,23 @@ def test_batched_lpcnet(weights, rng):
 
 @pytest.mark.parametrize("cls", ["LPCNet", "BatchedLPCNet"])
 def test_backend_dsp_is_refused_not_replaced(cls, weights):
-    """backend='dsp' raises NotImplementedError naming the ROADMAP (it
-    does not fall back to the neural vocoder); an unknown backend and a
-    net backend without weights raise ValueError."""
+    """backend='dsp' is the DSP vocoder, not the neural one run in its
+    place: it ignores the weights, as the JAX package does, and its
+    output does not depend on them; an unknown backend and a net backend
+    without weights raise ValueError."""
     path, _ = weights
     make = (lambda **kw: tvoc.LPCNet(device="cpu", **kw)) if cls == "LPCNet" \
         else (lambda **kw: tvoc.BatchedLPCNet(batch=2, device="cpu", **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make(backend="dsp", weights=path)
+    voc = make(backend="dsp", weights=path)
+    assert voc.backend == "dsp" and not hasattr(voc, "_model")
+    feats = np.zeros((2, 3, 20), np.float32)
+    if cls == "LPCNet":
+        out = voc.synthesize_frames(feats[0])
+        want = make(backend="dsp").synthesize_frames(feats[0])
+    else:
+        out = voc.synthesize_frames(feats)
+        want = make(backend="dsp").synthesize_frames(feats)
+    np.testing.assert_array_equal(out, want)
     with pytest.raises(ValueError):
         make(backend="wavenet", weights=path)
     with pytest.raises(ValueError, match="weights"):
@@ -222,7 +231,8 @@ def test_synthesize_app_on_the_cpu(tmp_path, rng, weights, kind):
         src = str(tmp_path / "feats.f32")
         np.pad(feats, ((0, 0), (0, 16))).astype(np.float32).tofile(src)
     out = str(tmp_path / "out.wav")
-    synthesize.main([src, out, "--weights", path, "--device", "cpu"])
+    synthesize.main([src, out, "--backend", "net", "--weights", path,
+                     "--device", "cpu"])
     fs, pcm = taudio.read_wav(out)
     assert fs == 16000 and pcm.dtype == np.int16 and pcm.shape == (480,)
     want = tvoc.LPCNet(weights=path, device="cpu").synthesize_frames(feats)
@@ -231,32 +241,38 @@ def test_synthesize_app_on_the_cpu(tmp_path, rng, weights, kind):
 
 def test_synthesize_app_picks_packaged_checkpoints_and_refuses(tmp_path,
                                                                monkeypatch):
-    """--bunch picks the packaged checkpoint as packaged_weights_bunched
-    does (1 = the flagship); --backend dsp is refused; a feature file of
-    another kind or width exits."""
+    """With --backend net, --bunch picks the packaged checkpoint as
+    packaged_weights_bunched does (1 = the flagship); the default backend
+    is dsp, which takes no weights and runs; a feature file of another kind
+    or width exits."""
     np.save(tmp_path / "feats.npy", np.zeros((2, 20), np.float32))
     src, out = str(tmp_path / "feats.npy"), str(tmp_path / "o.wav")
     picked = []
 
     class Fake:
         def __init__(self, backend, weights, device):
-            picked.append((backend, os.path.basename(weights), device))
+            picked.append((backend, weights and os.path.basename(weights),
+                           device))
 
         def synthesize_frames(self, feats):
             return np.zeros(len(feats) * 160, np.int16)
 
     monkeypatch.setattr(synthesize, "LPCNet", Fake)
+    net = ["--backend", "net"]
+    synthesize.main([src, out, *net, "--device", "cpu"])
+    synthesize.main([src, out, *net, "--bunch", "4", "--device", "cpu"])
+    synthesize.main([src, out, *net, "--bunch", "8"])
     synthesize.main([src, out, "--device", "cpu"])
-    synthesize.main([src, out, "--bunch", "4", "--device", "cpu"])
-    synthesize.main([src, out, "--bunch", "8"])
     assert picked == [("net", "vocoder_speech.npz", "cpu"),
                       ("net", "vocoder_speech_b4.npz", "cpu"),
-                      ("net", "vocoder_speech_b8.npz", None)]
+                      ("net", "vocoder_speech_b8.npz", None),
+                      ("dsp", None, "cpu")]
     with pytest.raises(SystemExit):
-        synthesize.main([src, out, "--bunch", "16", "--device", "cpu"])
+        synthesize.main([src, out, *net, "--bunch", "16", "--device", "cpu"])
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError):
-        synthesize.main([src, out, "--backend", "dsp", "--device", "cpu"])
+    synthesize.main([src, out, "--backend", "dsp", "--device", "cpu"])
+    fs, pcm = taudio.read_wav(out)
+    assert fs == 16000 and pcm.shape == (320,)
     with pytest.raises(SystemExit):
         synthesize.main([str(tmp_path / "feats.txt"), out])
     np.save(tmp_path / "narrow.npy", np.zeros((2, 19), np.float32))
