@@ -64,6 +64,29 @@
    Then the offline entries: dss_tpu_torch.apps.synthesize on a seeded
    [300, 20] feature file with the b4 checkpoint and with its default
    dsp backend (wavs of 48000 int16 samples), and BatchedLPCNet(batch=8).
+   Then the training path: three synthetic keyword days of 12 three-second
+   trials (129 channels at 1 kHz, 16 kHz audio) with their
+   SyllableRepetition normalization recordings (tests/torch_days.py; the
+   first day flags bad and contaminated channels), prepared on the card by
+   dss_tpu_torch.apps.prepare_corpus (the front-end kernel launched once
+   per trial extraction at 128 channels, the eager cascade never on a CUDA
+   tensor, BadChannelCorrection on a CUDA tensor once per extraction of
+   the flagged day; written as HDF files when h5py imports, else kept in
+   memory),
+   one whole trial [3040, 128] held against the plain version (state bit
+   for bit, features atol 1e-5) and timed; the nVAD (2 x 150, TBPTT 50)
+   and the decoder (2 x 100 bidirectional) trained by their apps at
+   dropout 0.5 for two epochs each (finite losses; the decoder app's
+   synthesis queue launches D1 once per job, each wav frames x 160
+   samples); 30 passes over one trial, whose loss must fall, with the
+   TBPTT chunk step and the decoder step timed by events (the step with
+   host lengths and with the mask on the card); a queue job timed; the
+   card-trained checkpoints read by the online loader and the decoder's
+   prediction vocoded; then the audio scored on
+   tools/make_speech_corpus.py --seconds 4 --seed 777 with the JAX
+   package's gates: the DSP vocoder CD < 22 dB, vocoder_speech.npz and
+   vocoder_speech_b8.npz each CD < 6 dB, STOI >= 0.70 and keyword ID
+   >= 0.75.
 4. Prints the kernels' line, latencies, the card's name and power limit,
    and last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
    without that line.  ``--report PATH`` also writes every measurement
@@ -203,6 +226,31 @@ def gathered_rows(S, carry, lpc, sig):
         corr += distinct(e_idx[:, S + n0 + j - 1])
         corr += distinct(p_idx[:, n0 + j])
     return emb, corr
+
+
+def device_split(fn):
+    """One call of ``fn`` under torch.profiler after a warm call: (host
+    wall ms with a synchronize, device ms summed over its kernel records,
+    kernel count, the three kernels with the most device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(
+                e.time_range.elapsed_us() / 1e3)
+    busy = sum(sum(v) for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:3]
+    return dict(wall_ms=wall, device_ms=busy,
+                kernels=sum(len(v) for v in by_name.values()),
+                top=[(name[:60], len(v), sum(v)) for name, v in top])
 
 
 def pct(xs, q):
@@ -1238,6 +1286,378 @@ def main(report_path=None) -> int:
            "streams)",
            offline)
 
+    # ---- the training path ---------------------------------------------------
+    def training_path():
+        """Corpus preparation -> nVAD and decoder training -> checkpoints the
+        online loader reads -> the synthesis queue (D1) -> quality scores."""
+        from scipy.io.wavfile import read as wavread
+
+        from dss_tpu_torch.apps import prepare_corpus as pc
+        from dss_tpu_torch.apps import train_bidirectional_model as dec_app
+        from dss_tpu_torch.apps import train_unidirectional_vad as vad_app
+        from dss_tpu_torch.eval import quality
+        from dss_tpu_torch.models.decoder import \
+            BidirectionalSpeechSynthesisModel
+        from dss_tpu_torch.models.lstm import seeded_init
+        from dss_tpu_torch.models.torch_port import load_checkpoint
+        from dss_tpu_torch.models.vad import UnidirectionalVoiceActivityDetector
+        from dss_tpu_torch.ops.car import BadChannelCorrection
+        from dss_tpu_torch.train.dataset import padded_batches, \
+            run_boundaries
+        from dss_tpu_torch.train.synth_queue import AsynchronousSynthesisQueue
+        from dss_tpu_torch.train.trainer_decoder import DecoderTrainer
+        from dss_tpu_torch.train.trainer_vad import VadTrainer
+        from dss_tpu_torch.utils.bci2000 import BCI2000MatFile
+        from dss_tpu_torch.utils.channels import \
+            SelectElectrodesOverSpeechAreas
+        from dss_tpu_torch.utils.hdf import save_data_to_hdf
+        from dss_tpu_torch.vocoder.features import LPCFeatureEncoder
+        from dss_tpu_torch.vocoder.lpcnet import LPCNet
+
+        tp = report["training_path"] = {}
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            base = Path(tmp)
+            sys.path.insert(0, str(ROOT / "tests"))
+            from torch_days import DAYS, make_corpus_days
+            data_dir, norm_dir = make_corpus_days(
+                base, n_trials=12, contaminated_day=DAYS[0])
+            kw_mats = sorted(data_dir.rglob("*.mat"))
+            kw_recs = [BCI2000MatFile(str(m)) for m in kw_mats]
+            norm_recs = [BCI2000MatFile(str(m))
+                         for m in sorted(norm_dir.rglob("*.mat"))]
+            counts = [(len(r.trial_indices(2.5)), r) for r in kw_recs] + \
+                [(len(r.trial_indices()), r) for r in norm_recs]
+            extractions = sum(n for n, _ in counts)
+            patched_expected = sum(n for n, r in counts
+                                   if r.contaminated_channels() is not None)
+
+            # -- corpus preparation, the front-end kernel once a trial and
+            # the bad-channel patching on the card for the flagged day
+            eager_on_card, patched = [], []
+
+            def guard(sos, x, zi):
+                if x.is_cuda:
+                    eager_on_card.append(tuple(x.shape))
+                    raise AssertionError("eager cascade on the card")
+                return sosfilt_scan(sos, x, zi)
+
+            def counted_patch(self, data):
+                patched.append(data.is_cuda)
+                return patch_call(self, data)
+            mods = (hga_mod, filters_mod, flp_mod)
+            for m in mods:
+                m.sosfilt_scan = guard
+            patch_call = BadChannelCorrection.__call__
+            BadChannelCorrection.__call__ = counted_patch
+            try:
+                zero_counts()
+                t0 = time.perf_counter()
+                corpus = pc.prepare(base / "corpus", norm_dir, [data_dir],
+                                    device=dev)
+                torch.cuda.synchronize()
+                prep_s = time.perf_counter() - t0
+                launches = read_counts()
+            finally:
+                for m in mods:
+                    m.sosfilt_scan = sosfilt_scan
+                BadChannelCorrection.__call__ = patch_call
+            frames = sum(len(r["trial_ids"]) for r in corpus.values())
+            tp["corpus"] = dict(
+                wall_s=prep_s, trial_extractions=extractions,
+                ms_per_extraction=prep_s * 1e3 / extractions,
+                launches=launches, recordings=len(corpus), frames=frames,
+                bad_channel_patching_on_card=sum(patched))
+            print(f"training path: corpus of {len(corpus)} recordings, "
+                  f"{frames} frames, in {prep_s:.2f} s ({extractions} trial "
+                  f"extractions, {tp['corpus']['ms_per_extraction']:.1f} ms "
+                  f"each with its LPC targets and labels); launches "
+                  f"{launches}; bad channels patched on the card in "
+                  f"{sum(patched)} of {patched_expected} flagged "
+                  f"extractions")
+            if eager_on_card:
+                raise AssertionError(f"the eager cascade ran on the card "
+                                     f"{len(eager_on_card)} time(s)")
+            if not patched_expected or len(patched) != patched_expected \
+                    or not all(patched):
+                raise AssertionError(
+                    f"BadChannelCorrection: {sum(patched)} of {len(patched)} "
+                    f"calls on the card, {patched_expected} extractions of "
+                    f"the flagged day")
+            if launches["filter_log_power"] != extractions:
+                raise AssertionError(
+                    f"front-end kernel: {launches['filter_log_power']} "
+                    f"launches for {extractions} trial extractions")
+            for r in corpus.values():
+                if r["hga_activity"].shape[1] != 128 or not all(
+                        np.all(np.isfinite(a)) for a in r.values()):
+                    raise AssertionError("corpus: bad shape or non-finite")
+            try:
+                import h5py  # noqa: F401
+            except ImportError:
+                recordings = corpus
+                tp["corpus"]["source"] = "in-memory dicts (no h5py)"
+            else:
+                for f, d in corpus.items():
+                    Path(f).parent.mkdir(parents=True, exist_ok=True)
+                    save_data_to_hdf(f, d, overwrite=True)
+                recordings = None
+                tp["corpus"]["source"] = "hdf files"
+            print(f"training path: the trainers read the corpus from "
+                  f"{tp['corpus']['source']}")
+
+            # -- one whole trial at 128 channels: the kernel vs plain
+            rec = BCI2000MatFile(str(kw_mats[0]))
+            _, start, stop = rec.trial_indices(2.5)[0]
+            raw = rec.signals()[start:int(stop + 40)].astype(np.float32)
+            ex = pc.get_feature_extractor(rec, dev)
+            x = ex.pre_transform(torch.as_tensor(raw, device=dev))
+            carry = ex.framebuffer.carry(x.shape[0], x)
+            args = (ex.sos, x, ex.zi, carry, 10, 50)
+            got = filter_log_power(*args)
+            want = filter_log_power_plain(*args)
+            torch.cuda.synchronize()
+            err = float((got[0] - want[0]).abs().max())
+            exact = torch.equal(got[1], want[1]) and \
+                torch.equal(got[2], want[2])
+            dev_ms, records = profiled_ms(lambda: filter_log_power(*args), 50,
+                                          "filter_log_power_kernel")
+            ev_ms = cuda_ms(lambda: filter_log_power(*args), 50)
+            plain_ms = cuda_ms(lambda: filter_log_power_plain(*args), 1,
+                               warmup=0)
+            T, C = x.shape
+            S, W = ex.sos.shape[0], got[0].shape[0]
+            nbytes = 4 * (T * C + ex.sos.numel() + 2 * ex.zi.numel()
+                          + W * C + 40 * C)
+            flops = C * (9 * S * T + 2 * T + W * (5 + 3))
+            t_b, t_f = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+            tp["front_end_trial"] = fe["T3040_C128"] = dict(
+                shape=[T, C], carry_rows=carry.shape[0], windows=W,
+                max_abs_err=err, state_and_carry_bit_equal=exact,
+                profiler_ms=dev_ms, profiler_records=records, events_ms=ev_ms,
+                plain_events_ms=plain_ms, bound_ms=max(t_b, t_f) * 1e3,
+                bound_by="bytes" if t_b > t_f else "operations",
+                chain_estimate_ms=9 * S * T / H100_BOOST_HZ * 1e3)
+            print(f"front-end kernel, one trial [{T}, {C}] with "
+                  f"{carry.shape[0]} carried rows: {W} windows, max err "
+                  f"{err:.3g}, zf/carry bit-equal {exact}; profiler {dev_ms} "
+                  f"ms over {records} records, events {ev_ms:.4f} ms, plain "
+                  f"{plain_ms:.1f} ms; bound {max(t_b, t_f) * 1e3:.2e} ms "
+                  f"({'bytes' if t_b > t_f else 'operations'})")
+            if got[0].shape != want[0].shape or not exact or not err <= 1e-5:
+                raise AssertionError("front-end kernel at [3040, 128] != plain")
+
+            # -- the two apps at deployed width, dropout 0.5, two epochs each
+            days = dict(test_day=DAYS[2], valid_day=DAYS[1],
+                        speech_corpus_root=base / "corpus", device="cuda")
+            (base / "vad").mkdir()
+            zero_counts()
+            t0 = time.perf_counter()
+            vad_hist = vad_app.main(vad_app.TrainingConfiguration(
+                nb_hidden_units=150, nb_layer=2, nb_epochs=2, batch_size=1,
+                num_workers=0, truncated_sequence_length=50,
+                out_dir=base / "vad", **days), recordings)
+            torch.cuda.synchronize()
+            vad_s = time.perf_counter() - t0
+            zero_counts()
+            t0 = time.perf_counter()
+            dec_hist = dec_app.main(dec_app.TrainingConfiguration(
+                nb_hidden_units=100, nb_layer=2, nb_epochs=2, batch_size=1,
+                num_workers=0, out_dir=base / "dec", **days), recordings)
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t0
+            dec_launches = read_counts()
+            jobs = sorted((base / "dec").rglob("*.npy"))
+            tp["apps"] = dict(vad_s=vad_s, vad_history=vad_hist,
+                              decoder_s=dec_s, decoder_history=dec_hist,
+                              decoder_launches=dec_launches,
+                              synthesis_jobs=len(jobs))
+            print(f"training path: nVAD 2 x 150, 2 epochs in {vad_s:.1f} s: "
+                  f"{vad_hist}; decoder 2 x 100 bidirectional, 2 epochs in "
+                  f"{dec_s:.1f} s: {dec_hist}; launches {dec_launches} for "
+                  f"{len(jobs)} synthesis jobs")
+            for h in vad_hist + dec_hist:
+                if not all(np.isfinite(v) for v in h.values()):
+                    raise AssertionError(f"non-finite training record {h}")
+            if len(jobs) != 6 or dec_launches["dsp_synthesis"] != len(jobs):
+                raise AssertionError(
+                    f"synthesis queue: {len(jobs)} jobs, "
+                    f"{dec_launches['dsp_synthesis']} D1 launches")
+            for npy in jobs:
+                fs, pcm = wavread(npy.with_suffix(".wav"))
+                n = len(np.load(npy))
+                if fs != 16000 or pcm.dtype != np.int16 or len(pcm) != n * 160 \
+                        or not pcm.any():
+                    raise AssertionError(f"{npy.name}: {len(pcm)} samples for "
+                                         f"{n} frames")
+
+            # -- repeated passes over one trial: the loss falls; step times
+            sel = SelectElectrodesOverSpeechAreas()
+            r0 = next(iter(corpus.values()))
+            a, b = run_boundaries(r0["trial_ids"])[0]
+            xt = sel(r0["hga_activity"][a:b])
+            vt = VadTrainer(seeded_init(UnidirectionalVoiceActivityDetector(
+                2, 150, 64, dropout=0.5), 1), device=dev)
+            xv, yv, mv = vt.pad_trial(xt, r0["vad_labels"][a:b])
+            vad_losses = [float(vt.tbptt_trial(xv, yv, mv)) for _ in range(30)]
+            dt = DecoderTrainer(seeded_init(BidirectionalSpeechSynthesisModel(
+                2, 100, 64, dropout=0.5), 1), device=dev)
+            xd, yd, md = dt.pad_trial(xt, r0["lpc_coefficients"][a:b])
+            dec_losses = [float(dt.train_step(xd, yd, md)) for _ in range(30)]
+            chunks = xv.shape[1] // 50
+            # The decoder step on a padded batch of three trials in no
+            # order of length, as padded_batches makes them: the packed
+            # path, with the lengths from the host-side mask ("after") and
+            # with the mask on the card, read back inside the step
+            # ("before"), in turns.
+            lengths = (263, b - a, 287)
+            xb, yb, mb = next(padded_batches(
+                [(xt[:n], r0["lpc_coefficients"][a:a + n]) for n in lengths],
+                3))
+            xb, yb, mb = xb[[1, 2, 0]], yb[[1, 2, 0]], mb[[1, 2, 0]]
+            mb_card = torch.as_tensor(mb, device=dev)
+            steps = {}
+            for name, mask in (("after", mb), ("before", mb_card),
+                               ("before", mb_card), ("after", mb)):
+                steps.setdefault(name, []).append(
+                    cuda_ms(lambda: dt.train_step(xb, yb, mask), 10))
+            tbptt_ms = cuda_ms(lambda: vt.tbptt_trial(xv, yv, mv), 5)
+            unpadded_ms = cuda_ms(lambda: dt.train_step(xd, yd, md), 10)
+            split = {
+                "tbptt_trial": device_split(
+                    lambda: vt.tbptt_trial(xv, yv, mv)),
+                "decoder_step_padded_batch": device_split(
+                    lambda: dt.train_step(xb, yb, mb)),
+                "decoder_step_one_trial": device_split(
+                    lambda: dt.train_step(xd, yd, md))}
+            tp["steps"] = dict(
+                decoder_step_ms_one_unpadded_trial=unpadded_ms,
+                device_split=split,
+                trial_frames=b - a, padded_to=xv.shape[1],
+                decoder_batch_lengths=mb.sum(1).tolist(),
+                vad_losses=vad_losses, decoder_losses=dec_losses,
+                tbptt_chunk_ms=tbptt_ms / chunks, tbptt_trial_ms=tbptt_ms,
+                decoder_step_ms_host_lengths=steps["after"],
+                decoder_step_ms_mask_on_card=steps["before"])
+            print(f"training path: one {b - a}-frame trial (padded to "
+                  f"{xv.shape[1]}), 30 passes: nVAD TBPTT loss "
+                  f"{np.mean(vad_losses[:5]):.4f} -> "
+                  f"{np.mean(vad_losses[-5:]):.4f}, decoder loss "
+                  f"{np.mean(dec_losses[:5]):.4f} -> "
+                  f"{np.mean(dec_losses[-5:]):.4f}; TBPTT chunk step "
+                  f"{tbptt_ms / chunks:.3f} ms (events, {chunks} a trial); "
+                  f"decoder step on a padded batch {mb.sum(1).tolist()} "
+                  f"{steps['after']} ms with host lengths, "
+                  f"{steps['before']} ms with the mask on the card (events "
+                  f"over 10 steps), one unpadded trial {unpadded_ms:.2f} ms; "
+                  f"device split (profiler) {split}")
+            if not (np.mean(vad_losses[-5:]) < np.mean(vad_losses[:5])
+                    and np.mean(dec_losses[-5:]) < np.mean(dec_losses[:5])
+                    and np.all(np.isfinite(vad_losses + dec_losses))):
+                raise AssertionError("the training loss did not fall")
+
+            # -- the synthesis queue alone: time a job
+            zero_counts()
+            t0 = time.perf_counter()
+            queue = AsynchronousSynthesisQueue(device=dev)
+            for npy in jobs[:3]:
+                queue.add_job(str(npy))
+            queue.wait()
+            job_ms = (time.perf_counter() - t0) * 1e3 / 3
+            q_launches = read_counts()["dsp_synthesis"]
+            tp["synthesis_job_ms"] = job_ms
+            tp["synthesis_job_frames"] = [len(np.load(p)) for p in jobs[:3]]
+            print(f"synthesis queue: {job_ms:.1f} ms a job "
+                  f"({tp['synthesis_job_frames']} frames), D1 launches "
+                  f"{q_launches}")
+            if q_launches != 3:
+                raise AssertionError(f"synthesis queue: {q_launches} D1 "
+                                     f"launches for 3 jobs")
+
+            # -- the card-trained checkpoints through the online loader
+            vad = UnidirectionalVoiceActivityDetector(2, 150, 64).to(dev)
+            vad.load_state_dict(load_checkpoint(
+                str(base / "vad" / "best_model.pth"), 2, False, "classifier"))
+            dec = BidirectionalSpeechSynthesisModel(2, 100, 64).to(dev)
+            dec.load_state_dict(load_checkpoint(
+                str(base / "dec" / "best_model.pth"), 2, True, "regressor"))
+            with torch.no_grad():
+                xin = torch.as_tensor(xt[None], device=dev)
+                speech = torch.softmax(vad.eval()(xin)[0], -1)[0, :, 1]
+                feats = dec.eval()(xin)[0][0].cpu().numpy()
+            zero_counts()
+            pcm = LPCNet(backend="dsp", device=dev).synthesize_frames(feats)
+            online = read_counts()["dsp_synthesis"]
+            if online != 1 or len(pcm) != len(feats) * 160 or \
+                    not np.all(np.isfinite(feats)) or \
+                    not bool(torch.isfinite(speech).all()):
+                raise AssertionError(f"online load: {len(pcm)} samples for "
+                                     f"{len(feats)} frames, D1 {online}")
+            print(f"card-trained checkpoints through load_checkpoint: VAD "
+                  f"speech share {float((speech > 0.5).float().mean()):.2f}, "
+                  f"decoder -> DSP vocoder {len(pcm)} samples")
+
+            # -- the card's audio scored on the in-repo speech corpus
+            subprocess.run([sys.executable, str(ROOT / "tools" /
+                                                "make_speech_corpus.py"),
+                            str(base / "speech"), "--seconds", "4", "--seed",
+                            "777"], check=True, capture_output=True,
+                           timeout=300)
+            val = base / "speech" / "val"
+            _, audio = wavread(val / "val_00.wav")
+            words = {w.name.split("_")[1]: wavread(w)[1]
+                     for w in sorted(val.glob("kw_*_0.wav"))}
+            scores = tp["scores"] = {}
+            zero_counts()
+            rt = quality.score_roundtrip(
+                audio[:16000], LPCNet(backend="dsp", device=dev), device=dev)
+            scores["dsp"] = dict(cepstral_distance_db=rt.cepstral_distance_db,
+                                 band_level_snr_db=rt.band_level_snr_db,
+                                 launches=read_counts())
+            for name, weights in (("b1", "vocoder_speech.npz"),
+                                  ("b8", "vocoder_speech_b8.npz")):
+                zero_counts()
+                voc = LPCNet(backend="net", weights=str(ROOT / "weights" /
+                                                         weights), device=dev)
+                rt = quality.score_roundtrip(audio[:16000], voc, device=dev)
+                voc.reset_decoder()
+                f = LPCFeatureEncoder(device=dev).compute_LPC_features(
+                    audio[:32000])
+                syn = voc.synthesize_frames(f)
+                n = min(len(syn), 32000)
+                st = quality.stoi(audio[:n], syn[:n])
+                originals, resyn = {}, {}
+                for word, w_audio in words.items():
+                    f = LPCFeatureEncoder(device=dev).compute_LPC_features(
+                        w_audio)
+                    voc.reset_decoder()
+                    originals[word] = [w_audio[:len(f) * 160]]
+                    resyn[word] = [voc.synthesize_frames(f)[:len(f) * 160]]
+                acc = quality.keyword_id_accuracy(originals, resyn, device=dev)
+                scores[name] = dict(
+                    weights=weights, cepstral_distance_db=rt.cepstral_distance_db,
+                    band_level_snr_db=rt.band_level_snr_db, stoi=st,
+                    keyword_id_accuracy=acc, keywords=len(words),
+                    launches=read_counts())
+            print(f"scores on tools/make_speech_corpus.py --seconds 4 --seed "
+                  f"777: {scores}")
+            gates = [("dsp CD < 22 dB", scores["dsp"]["cepstral_distance_db"]
+                      < 22.0)]
+            for name in ("b1", "b8"):
+                sc = scores[name]
+                gates += [(f"{name} CD < 6 dB", sc["cepstral_distance_db"] < 6.0),
+                          (f"{name} STOI >= 0.70", sc["stoi"] >= 0.70),
+                          (f"{name} keyword ID >= 0.75",
+                           sc["keyword_id_accuracy"] >= 0.75)]
+            failed = [g for g, ok in gates if not ok]
+            if len(words) != 6 or failed:
+                raise AssertionError(f"quality gates failed: {failed} "
+                                     f"({len(words)} keywords)")
+        tp["wall_s"] = time.perf_counter() - t_phase
+        print(f"training path phase: {tp['wall_s']:.1f} s wall")
+    ph.run("training path (corpus -> nVAD and decoder training -> synthesis "
+           "queue -> scores)", training_path)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1276,6 +1696,16 @@ def main(report_path=None) -> int:
     path_of = {"log_power": "b8", "filter_log_power": "b1",
                "lpcnet_sampler_b1": "b1", "lpcnet_sampler_bunched": "b8",
                "dsp_synthesis": "ship_resolved"}
+    # Every run whose counts were zeroed before it and read after it: the
+    # word paths and the shipped configuration, and on the training path
+    # corpus preparation (the front-end kernel once a trial), the decoder
+    # app (D1 once a synthesis job) and the scoring (K2, K3, D1).
+    tp = report["training_path"]
+    runs = {p: mp["launches"] for p, mp in report["main_path"].items()}
+    runs.update({"training_corpus": tp["corpus"]["launches"],
+                 "training_decoder_app": tp["apps"]["decoder_launches"]})
+    runs.update({f"scoring_{k}": v["launches"]
+                 for k, v in tp["scores"].items()})
     kernels = []
     for name, (route, src, replaces) in meta.items():
         k = report["kernels"][name]
@@ -1285,7 +1715,8 @@ def main(report_path=None) -> int:
             "launches": report["main_path"][path_of[name]]["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None})
+            "bound_by": k["bound_by"], "library_ms": None,
+            "launches_by_path": {p: c[name] for p, c in runs.items()}})
         if "plan" in k:  # the sampler: blocks per stream, weights on chip
             kernels[-1].update(
                 cluster=k["plan"]["cluster"],

@@ -9,6 +9,8 @@ each array), so this module needs no JAX:
   ``BidirectionalSpeechSynthesisModel`` (head ``regressor``).
 * Vocoder: the flat dict of arrays -> a dict of tensors; the port keeps
   the JAX layouts ([in, out]) at its public functions.
+* Optimizer: the JAX ``torch_rmsprop`` state ``{"sq": params pytree}`` ->
+  the ``state`` entry of the port's ``torch.optim.RMSprop`` state_dict.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from .vocoder.lpcnet import _load_params
 
@@ -37,6 +40,32 @@ def lstm_state_dict(params: Mapping, head_name: str) -> Dict[str, torch.Tensor]:
     for key in ("weight", "bias"):
         out[f"{head_name}.{key}"] = torch.as_tensor(
             np.asarray(params[head_name][key], np.float32))
+    return out
+
+
+def rmsprop_state(opt_state: Mapping, model: nn.Module, step: int = 0
+                  ) -> Dict[int, Dict[str, torch.Tensor]]:
+    """JAX ``torch_rmsprop`` state -> ``{i: {"step", "square_avg"}}`` for
+    the i-th parameter of ``model.parameters()``, in ``lstm_state_dict``'s
+    names and layouts: the ``state`` entry of an RMSprop state_dict, so
+
+        sd = optimizer.state_dict(); sd["state"] = rmsprop_state(...)
+        optimizer.load_state_dict(sd)
+
+    resumes from it.  The JAX state counts no steps and torch's update does
+    not read its count, so ``step`` is the caller's (for the record)."""
+    head = "classifier" if hasattr(model, "classifier") else "regressor"
+    sq = lstm_state_dict(opt_state["sq"], head)
+    out = {}
+    for i, (name, p) in enumerate(model.named_parameters()):
+        if tuple(sq[name].shape) != tuple(p.shape):
+            raise ValueError(f"rmsprop_state: {name} is {tuple(p.shape)} in "
+                             f"the model, {tuple(sq[name].shape)} in the "
+                             f"state")
+        # A copy: the optimizer updates its state in place, and the
+        # tensor shares the caller's array.
+        out[i] = {"step": torch.tensor(float(step)),
+                  "square_avg": sq[name].to(p.device, copy=True)}
     return out
 
 

@@ -5,7 +5,7 @@ features for a complete speech segment."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -32,11 +32,12 @@ class BidirectionalSpeechSynthesisModel(nn.Module):
         return zeros_state(self.lstm, batch_size, p.device, p.dtype)
 
     def forward(self, x: torch.Tensor, state: Optional[LstmState] = None,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None,
+                lengths: Optional[Sequence[int]] = None):
         """x [B, T, E] -> (features [B, T, nb_outputs], new state); with a
         right-padding ``mask`` [B, T], valid positions equal unpadded
         runs."""
         if state is None:
             state = self.create_new_initial_state(x.shape[0])
-        y, state = run_lstm(self.lstm, x, state, mask)
+        y, state = run_lstm(self.lstm, x, state, mask, lengths)
         return self.regressor(y), state

@@ -15,7 +15,7 @@ callers use valid positions only.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -25,15 +25,20 @@ LstmState = Tuple[torch.Tensor, torch.Tensor]  # (h, c): [L*D, B, H] each
 
 
 def run_lstm(lstm: nn.LSTM, x: torch.Tensor, state: Optional[LstmState],
-             mask: Optional[torch.Tensor] = None
+             mask: Optional[torch.Tensor] = None,
+             lengths: Optional[Sequence[int]] = None
              ) -> Tuple[torch.Tensor, LstmState]:
     """x [B, T, in] (batch first) -> (y [B, T, D*H], (h, c)).
 
-    ``mask`` [B, T] (1 = valid, right-padded) selects the packed path; a
-    mask that is all ones runs the plain path."""
-    if mask is None:
+    ``lengths`` (B valid lengths, on the host) or a right-padding ``mask``
+    [B, T] (1 = valid) selects the packed path; a batch whose every length
+    is T runs the plain path.  Give ``lengths`` where the caller knows them:
+    a mask on the card is read back to the host to find them."""
+    if mask is None and lengths is None:
         return lstm(x, state)
-    lengths = mask.detach().to("cpu").sum(dim=1).round().long()
+    if lengths is None:
+        lengths = mask.detach().to("cpu").sum(dim=1).round().long()
+    lengths = torch.as_tensor(lengths, dtype=torch.int64).reshape(-1)
     T = x.shape[1]
     if bool((lengths == T).all()):
         return lstm(x, state)

@@ -4,7 +4,7 @@ and a Linear(H -> 2) classifier, with an explicit carried (h, c)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -29,9 +29,10 @@ class UnidirectionalVoiceActivityDetector(nn.Module):
         return zeros_state(self.lstm, batch_size, p.device, p.dtype)
 
     def forward(self, x: torch.Tensor, state: Optional[LstmState] = None,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None,
+                lengths: Optional[Sequence[int]] = None):
         """x [B, T, E] -> (logits [B, T, 2], new state)."""
         if state is None:
             state = self.create_new_initial_state(x.shape[0])
-        y, state = run_lstm(self.lstm, x, state, mask)
+        y, state = run_lstm(self.lstm, x, state, mask, lengths)
         return self.classifier(y), state

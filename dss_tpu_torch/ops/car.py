@@ -1,5 +1,7 @@
-"""Re-referencing and normalization transforms on torch tensors shaped
-[..., time, channels] (counterpart of dss_tpu/ops/car.py)."""
+"""Re-referencing, bad-channel patching and normalization transforms on
+torch tensors shaped [..., time, channels] (counterpart of
+dss_tpu/ops/car.py).  Index sets are resolved on the host at construction;
+``to(device)`` puts them on the device the transform is called on."""
 
 from __future__ import annotations
 
@@ -7,6 +9,7 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+from scipy.ndimage import binary_dilation
 
 
 class CommonAverageReferencing:
@@ -44,6 +47,68 @@ class CommonAverageReferencing:
             mean = data.index_select(-1, compute_idx).mean(-1, keepdim=True)
             result[..., apply_idx] -= mean
         return result
+
+
+class BadChannelCorrection:
+    """Replace each bad channel with the mean of its non-bad 8-neighbourhood
+    on its grid (found with ``binary_dilation`` at construction)."""
+
+    def __init__(self, bad_channels: Sequence[int], grids: List[np.ndarray],
+                 layout: np.ndarray):
+        self.layout = np.asarray(layout)
+        good_masks = [np.ones(grid.shape, dtype=bool) for grid in grids]
+        for bc in bad_channels:
+            gi = self._grid_index(bc, grids)
+            good_masks[gi][grids[gi] == bc] = False
+
+        footprint = np.ones((3, 3), dtype=bool)
+        footprint[1, 1] = False
+
+        self.patches = []
+        for bc in bad_channels:
+            gi = self._grid_index(bc, grids)
+            grid = grids[gi]
+            neighborhood = binary_dilation(grid == bc, structure=footprint) \
+                & good_masks[gi]
+            bad_idx = np.flatnonzero(self.layout == bc)
+            nbr_idx = np.concatenate(
+                [np.flatnonzero(self.layout == n) for n in grid[neighborhood]])
+            self.patches.append((bad_idx, nbr_idx))
+        self._device = None
+        self._index: List = []
+
+    @staticmethod
+    def _grid_index(channel: int, grids: List[np.ndarray]) -> int:
+        for i, grid in enumerate(grids):
+            if channel in grid:
+                return i
+        raise IndexError("Channel could not be found in given grids.")
+
+    def to(self, device) -> "BadChannelCorrection":
+        self._device = torch.device(device)
+        self._index = [
+            (torch.as_tensor(b, device=device), torch.as_tensor(n, device=device))
+            for b, n in self.patches]
+        return self
+
+    def __call__(self, data: torch.Tensor) -> torch.Tensor:
+        if self._device != data.device:
+            self.to(data.device)
+        result = data.clone()
+        for bad_idx, nbr_idx in self._index:
+            mean = data.index_select(-1, nbr_idx).mean(-1, keepdim=True)
+            result[..., bad_idx] = mean
+        return result
+
+    def __len__(self) -> int:
+        return len(self.patches)
+
+    def __repr__(self) -> str:
+        items = [f"{int(self.layout[b][0])} -> "
+                 f"{[int(self.layout[i]) for i in n]}"
+                 for b, n in self.patches]
+        return (f"Correcting {len(self.patches)} bad channels: "
+                f"{', '.join(items)}")
 
 
 class ZScoreNormalization:

@@ -34,6 +34,7 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -51,7 +52,7 @@ class DspCarry(NamedTuple):
     deemph_mem: torch.Tensor   # [B] f32, the last de-emphasized sample
 
 
-def _tree_sum(p: torch.Tensor) -> torch.Tensor:
+def _tree_sum(p: np.ndarray) -> np.ndarray:
     """Sum over the last axis (a power of two) as the pairwise tree
     ((p0+p1)+(p2+p3))+... that the kernel uses."""
     while p.shape[-1] > 1:
@@ -64,31 +65,38 @@ def dsp_synthesis_plain(lpc: torch.Tensor, gain: torch.Tensor,
                         period: torch.Tensor, noise: torch.Tensor,
                         carry: DspCarry):
     """Plain version of D1: a Python loop over the samples, every stream at
-    once.  Returns (pcm [B, T*160] f32 in [-1, 1], new carry)."""
+    once, in float32 numpy on the host (each operation rounded once, as
+    torch's would be, at a fraction of its per-call cost).  Returns (pcm
+    [B, T*160] f32 in [-1, 1], new carry) on the inputs' device."""
     B, T = gain.shape
+    dev = gain.device
     if T == 0:
-        return torch.zeros((B, 0), device=gain.device), carry
+        return torch.zeros((B, 0), device=dev), carry
     amp = torch.where(voiced, v_mix * torch.sqrt(period.to(torch.float32)),
                       torch.zeros_like(v_mix))               # v_mix * pulse
-    excite_a = (1.0 - v_mix)[..., None] * noise               # [B, T, 160]
-    excite_b = (v_mix * 0.25)[..., None] * noise
-    zero = torch.zeros_like(v_mix[:, 0])
-    sig_mem, phase, y = carry
-    out = []
+    excite_a = ((1.0 - v_mix)[..., None] * noise).cpu().numpy()  # [B, T, 160]
+    excite_b = ((v_mix * 0.25)[..., None] * noise).cpu().numpy()
+    lpc, amp, gain, period = (t.cpu().numpy() for t in (lpc, amp, gain,
+                                                        period))
+    sig_mem, phase, y = (t.cpu().numpy() for t in carry)
+    zero = np.zeros_like(amp[:, 0])
+    preemph = np.float32(PREEMPH)
+    out = np.empty((B, T * FRAME), np.float32)
     for t in range(T):
         a_t, amp_t, gain_t, period_t = lpc[:, t], amp[:, t], gain[:, t], \
             period[:, t]
         for i in range(FRAME):
             pulse_now = phase <= 0
-            t1 = torch.where(pulse_now, amp_t, zero)
-            phase = torch.where(pulse_now, period_t, phase) - 1
+            t1 = np.where(pulse_now, amp_t, zero)
+            phase = np.where(pulse_now, period_t, phase) - 1
             e = gain_t * ((t1 + excite_a[:, t, i]) + excite_b[:, t, i])
             s = e - _tree_sum(sig_mem * a_t)
-            sig_mem = torch.cat([s[:, None], sig_mem[:, :-1]], dim=1)
-            y = s + PREEMPH * y
-            out.append(y)
-    pcm = torch.clamp(torch.stack(out, dim=1), -1.0, 1.0)
-    return pcm, DspCarry(sig_mem, phase, y)
+            sig_mem = np.concatenate([s[:, None], sig_mem[:, :-1]], axis=1)
+            y = s + preemph * y
+            out[:, t * FRAME + i] = y
+    pcm = torch.as_tensor(np.clip(out, -1.0, 1.0), device=dev)
+    return pcm, DspCarry(*(torch.as_tensor(a, device=dev)
+                           for a in (sig_mem, phase.astype(np.int32), y)))
 
 
 @lru_cache(maxsize=256)

@@ -446,3 +446,115 @@ def test_dsp_synthesis_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         dsp_synthesis(lpc, gain, v_mix, voiced, period, noise[..., :80],
                       carry)
+
+
+# ---- the training path -------------------------------------------------------
+
+def test_front_end_kernel_on_a_whole_trial_at_128_channels(dev):
+    """Corpus preparation's shape: one 3040-sample trial at 128 channels
+    (4 blocks of 32 lanes) from a fresh state with no carried rows, against
+    the plain version: zf and the carried rows bit for bit, features
+    atol 1e-5."""
+    ex = HighGammaExtractor(fs=1000, nb_electrodes=128, device=dev)
+    x = torch.randn((3040, 128), generator=torch.Generator().manual_seed(6))
+    x = x.to(dev)
+    carry = ex.framebuffer.carry(x.shape[0], x)
+    assert carry.shape == (0, 128)
+    before = filter_log_power.launches
+    got = filter_log_power(ex.sos, x, ex.zi, carry, 10, 50)
+    want = filter_log_power_plain(ex.sos, x, ex.zi, carry, 10, 50)
+    torch.cuda.synchronize()
+    assert filter_log_power.launches == before + 1
+    assert got[0].shape == want[0].shape == (300, 128)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+
+
+def test_bad_channel_correction_on_the_card_matches_the_cpu(dev):
+    """Corner, edge and inner bad channels patched on the card as on the
+    CPU; atol 1e-6 (means of up to 8 values, another order)."""
+    from dss_tpu_torch.ops.car import BadChannelCorrection
+    from dss_tpu_torch.utils.channels import default_layout, motor_grid, \
+        speech_grid
+    bcc = BadChannelCorrection([1, 19, 64, 70, 128],
+                               [speech_grid(), motor_grid()],
+                               default_layout())
+    x = torch.randn((300, 128), generator=torch.Generator().manual_seed(7))
+    want = bcc(x)
+    got = bcc(x.to(dev))
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+
+
+def _trainer_pair(dev, kind):
+    """The same seeded model at dropout 0 on the card and on the CPU."""
+    from dss_tpu_torch.models.decoder import BidirectionalSpeechSynthesisModel
+    from dss_tpu_torch.models.lstm import seeded_init
+    from dss_tpu_torch.models.vad import UnidirectionalVoiceActivityDetector
+    from dss_tpu_torch.train.trainer_decoder import DecoderTrainer
+    from dss_tpu_torch.train.trainer_vad import VadTrainer
+    if kind == "vad":
+        make = lambda d: VadTrainer(seeded_init(  # noqa: E731
+            UnidirectionalVoiceActivityDetector(2, 150, 64), 0), device=d)
+    else:
+        make = lambda d: DecoderTrainer(seeded_init(  # noqa: E731
+            BidirectionalSpeechSynthesisModel(2, 100, 64), 0), device=d)
+    return make(dev), make("cpu")
+
+
+def _record_steps(trainer):
+    """Record the gradients at every optimizer step of ``trainer``."""
+    grads, step = [], trainer.optimizer.step
+
+    def recording_step(*a, **kw):
+        grads.append({k: p.grad.detach().cpu().clone()
+                      for k, p in trainer.model.named_parameters()})
+        return step(*a, **kw)
+    trainer.optimizer.step = recording_step
+    return grads
+
+
+def _batch(lengths, T, E, F=None, seed=8):
+    rng = np.random.default_rng(seed)
+    B = len(lengths)
+    x = np.zeros((B, T, E), np.float32)
+    y = np.zeros((B, T, F) if F else (B, T), np.float32)
+    m = np.zeros((B, T), np.float32)
+    for b, n in enumerate(lengths):
+        x[b, :n] = rng.normal(size=(n, E))
+        y[b, :n] = rng.normal(size=(n, F)) if F else rng.integers(0, 2, n)
+        m[b, :n] = 1.0
+    return x, y, m
+
+
+def test_vad_tbptt_trial_on_the_card_matches_the_cpu(dev):
+    """One TBPTT trial (2 x 150, six 50-frame chunks, the last all
+    padding): the mean chunk loss rtol 1e-4, the first chunk's gradients
+    atol 1e-5 (cuDNN's LSTM backward against the CPU's), five steps."""
+    card, cpu = _trainer_pair(dev, "vad")
+    grads = [_record_steps(card), _record_steps(cpu)]
+    x, y, m = _batch((250, 180, 97), 300, 64)
+    losses = [t.tbptt_trial(x, y, m) for t in (card, cpu)]
+    assert len(grads[0]) == len(grads[1]) == 5
+    torch.testing.assert_close(losses[0].cpu(), losses[1], rtol=1e-4, atol=0)
+    for k in grads[1][0]:
+        torch.testing.assert_close(grads[0][0][k], grads[1][0][k], atol=1e-5,
+                                   rtol=0, msg=k)
+
+
+def test_decoder_step_on_the_card_matches_the_cpu(dev):
+    """One full-BPTT step (2 x 100 bidirectional) on a padded batch in no
+    order of length: loss rtol 1e-4, gradients atol 1e-5; on the card the
+    mask given as a CUDA tensor gives the same step as the host lengths."""
+    card, cpu = _trainer_pair(dev, "dec")
+    x, y, m = _batch((287, 300, 263), 300, 64, 20)
+    losses = [t.train_step(x, y, m) for t in (card, cpu)]
+    torch.testing.assert_close(losses[0].cpu(), losses[1], rtol=1e-4, atol=0)
+    for (k, p), q in zip(card.model.named_parameters(),
+                         cpu.model.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-5, rtol=0,
+                                   msg=k)
+    again, _ = _trainer_pair(dev, "dec")
+    again.train_step(x, y, torch.as_tensor(m, device=dev))
+    for p, q in zip(again.model.parameters(), card.model.parameters()):
+        torch.testing.assert_close(p.grad, q.grad, atol=1e-6, rtol=0)
