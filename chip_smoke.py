@@ -87,6 +87,26 @@
    package's gates: the DSP vocoder CD < 22 dB, vocoder_speech.npz and
    vocoder_speech_b8.npz each CD < 6 dB, STOI >= 0.70 and keyword ID
    >= 0.75.
+   Then vocoder training (dss_tpu_torch.apps.train_vocoder, the full-width
+   model: GRU-A 384, GRU-B 32, cond 128): D2 (``lpc_recursion``, the
+   trainer's teacher-forced LPC recursion; no TPU kernel behind it) against
+   its plain version at B = 32 x 2400 samples in both modes (all four
+   outputs bit for bit), timed by the profiler and events beside its bound
+   and chain estimate; one full-width teacher-forced step on the card
+   against the CPU (B = 4, on the card's recursion: loss rtol 1e-5, every
+   gradient rtol 1e-4 + 1e-4 of its tensor's largest element); the app on
+   tools/make_speech_corpus.py --seconds 30 --seed 778 at bunch 1 (four
+   epochs: teacher-forced, scheduled sampling twice, free-running; pruning
+   0.6 -> 0.2; validation on two val wavs of the seed-777 corpus through K2,
+   the first scoring refused by the density gate, the second saved) and at
+   bunch 8 (two epochs, K3 in its scoring), with D2 launched as predicted
+   (once a teacher-forced or free-running step, twice a sampled one); the
+   card-trained checkpoint keeping 43 of 216 GRU-A tiles, greedy through K2
+   over 50 frames equal to the plain version, and loaded by LPCNet; each
+   stage's ms a step (events) and device split (profiler); 30
+   teacher-forced steps on one batch whose loss must fall; --resume to a
+   fifth epoch; one epoch's fine-tune of weights/vocoder_speech.npz at lr
+   1e-5 (its mask inherited) scored with the gates above.
 4. Prints the kernels' line, latencies, the card's name and power limit,
    and last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
    without that line.  ``--report PATH`` also writes every measurement
@@ -228,12 +248,14 @@ def gathered_rows(S, carry, lpc, sig):
     return emb, corr
 
 
-def device_split(fn):
-    """One call of ``fn`` under torch.profiler after a warm call: (host
-    wall ms with a synchronize, device ms summed over its kernel records,
-    kernel count, the three kernels with the most device time)."""
+def device_split(fn, warm=True):
+    """One call of ``fn`` under torch.profiler, after a warm call unless
+    ``warm`` is false (the caller ran it already): (host wall ms with a
+    synchronize, device ms summed over its kernel records, kernel count, the
+    three kernels with the most device time)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -255,6 +277,45 @@ def device_split(fn):
 
 def pct(xs, q):
     return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def speech_corpus(out, seconds, seed):
+    """tools/make_speech_corpus.py into ``out`` (train/utt_*.wav, val/)."""
+    subprocess.run([sys.executable, str(ROOT / "tools" /
+                                        "make_speech_corpus.py"),
+                    str(out), "--seconds", str(seconds), "--seed", str(seed)],
+                   check=True, capture_output=True, timeout=300)
+
+
+def net_scores(voc, audio, words, dev):
+    """The JAX package's quality measures of a neural vocoder: cepstral
+    distance and band SNR of a 1 s round trip, STOI over 2 s, keyword ID
+    over the keyword recordings ``words`` ({word: int16 audio})."""
+    from dss_tpu_torch.eval import quality
+    from dss_tpu_torch.vocoder.features import LPCFeatureEncoder
+    rt = quality.score_roundtrip(audio[:16000], voc, device=dev)
+    voc.reset_decoder()
+    f = LPCFeatureEncoder(device=dev).compute_LPC_features(audio[:32000])
+    syn = voc.synthesize_frames(f)
+    n = min(len(syn), 32000)
+    st = quality.stoi(audio[:n], syn[:n])
+    originals, resyn = {}, {}
+    for word, w_audio in words.items():
+        f = LPCFeatureEncoder(device=dev).compute_LPC_features(w_audio)
+        voc.reset_decoder()
+        originals[word] = [w_audio[:len(f) * 160]]
+        resyn[word] = [voc.synthesize_frames(f)[:len(f) * 160]]
+    acc = quality.keyword_id_accuracy(originals, resyn, device=dev)
+    return dict(cepstral_distance_db=rt.cepstral_distance_db,
+                band_level_snr_db=rt.band_level_snr_db, stoi=st,
+                keyword_id_accuracy=acc, keywords=len(words))
+
+
+def net_gates(name, sc):
+    """The JAX package's gates for a neural vocoder's ``net_scores``."""
+    return [(f"{name} CD < 6 dB", sc["cepstral_distance_db"] < 6.0),
+            (f"{name} STOI >= 0.70", sc["stoi"] >= 0.70),
+            (f"{name} keyword ID >= 0.75", sc["keyword_id_accuracy"] >= 0.75)]
 
 
 class Phases:
@@ -290,6 +351,8 @@ def main(report_path=None) -> int:
         filter_log_power_plain
     from dss_tpu_torch.ops.filters import sosfilt_scan
     from dss_tpu_torch.ops.log_power import log_power, log_power_plain
+    from dss_tpu_torch.ops.lpc_recursion import lpc_recursion, \
+        lpc_recursion_plain
     from dss_tpu_torch.ops.sampler import kernel_plan, \
         prepare_sampler_weights, sampler_frames, sampler_frames_bunched, \
         sampler_frames_bunched_plain, sampler_frames_plain, \
@@ -872,7 +935,8 @@ def main(report_path=None) -> int:
                 "filter_log_power": filter_log_power,
                 "dsp_synthesis": dsp_synthesis,
                 "lpcnet_sampler_b1": sampler_frames,
-                "lpcnet_sampler_bunched": sampler_frames_bunched}
+                "lpcnet_sampler_bunched": sampler_frames_bunched,
+                "lpc_recursion": lpc_recursion}
 
     def zero_counts():
         for fn in counters.values():
@@ -1311,7 +1375,6 @@ def main(report_path=None) -> int:
         from dss_tpu_torch.utils.channels import \
             SelectElectrodesOverSpeechAreas
         from dss_tpu_torch.utils.hdf import save_data_to_hdf
-        from dss_tpu_torch.vocoder.features import LPCFeatureEncoder
         from dss_tpu_torch.vocoder.lpcnet import LPCNet
 
         tp = report["training_path"] = {}
@@ -1598,11 +1661,7 @@ def main(report_path=None) -> int:
                   f"decoder -> DSP vocoder {len(pcm)} samples")
 
             # -- the card's audio scored on the in-repo speech corpus
-            subprocess.run([sys.executable, str(ROOT / "tools" /
-                                                "make_speech_corpus.py"),
-                            str(base / "speech"), "--seconds", "4", "--seed",
-                            "777"], check=True, capture_output=True,
-                           timeout=300)
+            speech_corpus(base / "speech", 4, 777)
             val = base / "speech" / "val"
             _, audio = wavread(val / "val_00.wav")
             words = {w.name.split("_")[1]: wavread(w)[1]
@@ -1619,36 +1678,15 @@ def main(report_path=None) -> int:
                 zero_counts()
                 voc = LPCNet(backend="net", weights=str(ROOT / "weights" /
                                                          weights), device=dev)
-                rt = quality.score_roundtrip(audio[:16000], voc, device=dev)
-                voc.reset_decoder()
-                f = LPCFeatureEncoder(device=dev).compute_LPC_features(
-                    audio[:32000])
-                syn = voc.synthesize_frames(f)
-                n = min(len(syn), 32000)
-                st = quality.stoi(audio[:n], syn[:n])
-                originals, resyn = {}, {}
-                for word, w_audio in words.items():
-                    f = LPCFeatureEncoder(device=dev).compute_LPC_features(
-                        w_audio)
-                    voc.reset_decoder()
-                    originals[word] = [w_audio[:len(f) * 160]]
-                    resyn[word] = [voc.synthesize_frames(f)[:len(f) * 160]]
-                acc = quality.keyword_id_accuracy(originals, resyn, device=dev)
-                scores[name] = dict(
-                    weights=weights, cepstral_distance_db=rt.cepstral_distance_db,
-                    band_level_snr_db=rt.band_level_snr_db, stoi=st,
-                    keyword_id_accuracy=acc, keywords=len(words),
-                    launches=read_counts())
+                scores[name] = dict(weights=weights,
+                                    **net_scores(voc, audio, words, dev),
+                                    launches=read_counts())
             print(f"scores on tools/make_speech_corpus.py --seconds 4 --seed "
                   f"777: {scores}")
             gates = [("dsp CD < 22 dB", scores["dsp"]["cepstral_distance_db"]
                       < 22.0)]
             for name in ("b1", "b8"):
-                sc = scores[name]
-                gates += [(f"{name} CD < 6 dB", sc["cepstral_distance_db"] < 6.0),
-                          (f"{name} STOI >= 0.70", sc["stoi"] >= 0.70),
-                          (f"{name} keyword ID >= 0.75",
-                           sc["keyword_id_accuracy"] >= 0.75)]
+                gates += net_gates(name, scores[name])
             failed = [g for g, ok in gates if not ok]
             if len(words) != 6 or failed:
                 raise AssertionError(f"quality gates failed: {failed} "
@@ -1657,6 +1695,370 @@ def main(report_path=None) -> int:
         print(f"training path phase: {tp['wall_s']:.1f} s wall")
     ph.run("training path (corpus -> nVAD and decoder training -> synthesis "
            "queue -> scores)", training_path)
+
+    # ---- vocoder training ----------------------------------------------------
+    def vocoder_training():
+        """D2 against its plain version; a full-width teacher-forced step on
+        the card against the CPU; the training app at bunch 1 (all three
+        loss stages, the prune ramp, best-by-validation scored through K2)
+        and at bunch 8 (K3); the card-trained checkpoint on the sampler
+        kernel's sparse path; each stage's step time; a falling loss;
+        --resume; a fine-tune of the shipped checkpoint, scored with the
+        JAX package's gates."""
+        import shutil
+
+        from scipy.io.wavfile import read as wavread
+
+        from dss_tpu_torch.apps import train_vocoder as voc_app
+        from dss_tpu_torch.ops.sampler import compact_gru_a_tiles
+        from dss_tpu_torch.train.trainer_vocoder import VocoderTrainer
+        from dss_tpu_torch.vocoder.lpcnet import LPCNet
+
+        vt = report["vocoder_training"] = {}
+        t_phase = time.perf_counter()
+
+        # -- D2 against its plain version at the trainer's shape (B = 32
+        # chunks of 15 frames), both modes: all four outputs bit for bit
+        g = torch.Generator().manual_seed(21)
+        B, T = 32, 15
+        S = T * 160
+        f = torch.randn((B, T, 20), generator=g) * 0.3
+        f[..., 0] -= 4.0
+        lpc, _ = lpc_from_bands(bands_from_cepstrum(f[..., :18]))
+        period = 40 + 80 * torch.rand((B, 1), generator=g)
+        sig = (0.3 * torch.sin(2 * np.pi * torch.arange(S)[None] / period)
+               + 0.02 * torch.randn((B, S), generator=g)).float()
+        d2 = report["kernels"]["lpc_recursion"] = {"modes": {}}
+        runs = {}
+        for mode in ("noise", "feedback"):
+            inj = torch.randint(-2, 3, (B, S), generator=g) if mode == "noise" \
+                else torch.randint(0, 256, (B, S), generator=g)
+            args = (sig.to(dev), lpc.to(dev), inj.to(dev), mode == "feedback",
+                    24)
+            got = lpc_recursion(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = lpc_recursion_plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            equal = {n: torch.equal(a, b)
+                     for n, a, b in zip(got._fields, got, want)}
+            err = max(float((got.pred - want.pred).abs().max()),
+                      float((got.sig_rec - want.sig_rec).abs().max()))
+            d2["modes"][mode] = dict(bit_equal=equal, plain_ms=plain_ms,
+                                     max_abs_err=err)
+            runs[mode] = lambda args=args: lpc_recursion(*args)
+            print(f"D2 {mode} mode, B={B} x {S} samples: bit-equal {equal}, "
+                  f"plain version {plain_ms:.0f} ms")
+            if not all(equal.values()):
+                raise AssertionError(f"D2 {mode} mode != plain: {equal}")
+        dev_ms, records = profiled_ms(runs["noise"], 20, "lpc_recursion_kernel")
+        ev_ms = cuda_ms(runs["noise"], 20)
+        # The SM clock, sampled over ~1 s of back-to-back launches.
+        clocks = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
+        time.sleep(0.2)
+        cuda_ms(runs["noise"], 3000, warmup=0)
+        clocks.terminate()
+        mhz = [int(v) for v in clocks.communicate()[0].split()
+               if v.strip().isdigit()]
+        clock = (pct(mhz, 50) or H100_BOOST_HZ / 1e6) * 1e6
+        # Bytes: signal (4) and the injected index (8) in, pred, rec (4 each)
+        # and two int64 indices out a sample; the taps (64 a frame), the
+        # decode table.  Operations a sample: 16 products and 15 sums of the
+        # taps, the subtraction, two clips, mu-law's 4 products, 1 sum, the
+        # rounding and its clip, the jitter's sum and clip, the sum with the
+        # decoded level and its clip: ~47.
+        nbytes = B * S * (4 + 8 + 4 + 4 + 8 + 8) + B * T * 64 + 256 * 4
+        flops = B * S * 47
+        t_b, t_f = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+        # The chain from one reconstruction to the next: the tap tree (a
+        # product and four sums), negation, subtraction, clip, |x| and the
+        # product by 255 (~10 operations at ~4 clocks), libdevice's log1pf
+        # (~40 clocks), mu-law's scaling, rounding and clips (~8 at ~4),
+        # the jitter (~3 at ~4), the shared-memory table read (~30), the sum
+        # and clip (~3 at ~4): ~190 clocks a sample.
+        chain_ms = S * 190 / clock * 1e3
+        d2.update(
+            max_abs_err=max(m["max_abs_err"] for m in d2["modes"].values()),
+            profiler_ms=dev_ms, profiler_records=records, events_ms=ev_ms,
+            ms=dev_ms if dev_ms is not None else ev_ms,
+            ms_from="profiler" if dev_ms is not None else "events",
+            plain_ms=d2["modes"]["noise"]["plain_ms"],
+            bound_ms=max(t_b, t_f) * 1e3,
+            bound_by="bytes" if t_b > t_f else "operations", bytes=nbytes,
+            flops=flops, chain_estimate_ms=chain_ms,
+            ns_per_sample=(dev_ms or ev_ms) * 1e6 / S,
+            sm_clock_mhz=dict(min=min(mhz, default=None), median=pct(mhz, 50),
+                              max=max(mhz, default=None)))
+        print(f"D2 per batch (B={B}, {S} samples a stream): profiler {dev_ms} "
+              f"ms over {records} records, events {ev_ms:.4f} ms "
+              f"({d2['ns_per_sample']:.1f} ns a sample); plain version "
+              f"{d2['plain_ms']:.0f} ms; bound {d2['bound_ms']:.2e} ms "
+              f"({d2['bound_by']}); chain estimate {chain_ms:.3f} ms at "
+              f"{clock / 1e6:.0f} MHz; SM clock {d2['sm_clock_mhz']}")
+
+        # -- one full-width teacher-forced step, card against CPU (B = 4):
+        # same parameters, the card's recursion (D2) on the same noise for
+        # both (the two devices' taps differ by rounding, which can move a
+        # prediction across a mu-law level's edge); loss rtol 1e-5, every
+        # gradient rtol 1e-4 + atol 1e-4 of its tensor's largest element
+        params0 = tnet.LPCNetModel().init(torch.Generator().manual_seed(1),
+                                          "cpu")
+        noise = torch.randint(-2, 3, (4, S), generator=g)
+        step = {}
+        rec = None
+        for d in (dev, torch.device("cpu")):
+            tr = VocoderTrainer(tnet.LPCNetModel(), device=d)
+            p = tr.init(params0)
+            fd, sd = f[:4].to(d), sig[:4].to(d)
+            if rec is None:
+                full = tr._loss(p, fd, sd, noise.to(d))
+                _, lpc_d, _ = tr._prepare_cond(p, fd)
+                rec = tr._recursion(sd, lpc_d, noise=noise.to(d))
+            cond, _, _ = tr._prepare_cond(p, fd)
+            loss = tr._forward_ce(p, cond.repeat_interleave(160, 1),
+                                  *(r.to(d) for r in rec))
+            gs = torch.autograd.grad(loss, [p[k] for k in tr.trainable])
+            step[d.type] = (float(loss), {k: v.cpu() for k, v in
+                                          zip(tr.trainable, gs)})
+        worst = max((float(((step["cuda"][1][k] - w_).abs()
+                             - 1e-4 * w_.abs()).max())
+                     / max(float(w_.abs().max()), 1e-30), k)
+                    for k, w_ in step["cpu"][1].items())
+        vt["card_vs_cpu_step"] = dict(
+            loss_card=step["cuda"][0], loss_cpu=step["cpu"][0],
+            loss_through_loss=float(full),
+            worst_grad_excess_over_rtol_rel_to_max=worst)
+        print(f"full-width teacher-forced step, card vs CPU (B=4): loss "
+              f"{step['cuda'][0]:.7f} vs {step['cpu'][0]:.7f}; worst gradient "
+              f"|d| - 1e-4|g| relative to its tensor's max: {worst}")
+        if not (abs(step["cuda"][0] - step["cpu"][0])
+                <= 1e-5 * abs(step["cpu"][0]) and worst[0] <= 1e-4
+                and float(full) == step["cuda"][0]):
+            raise AssertionError("the teacher-forced step on the card != CPU")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            base = Path(tmp)
+            speech_corpus(base / "train_corpus", 30, 778)
+            speech_corpus(base / "speech", 4, 777)
+            wav_dir, val_dir = base / "utt", base / "val"
+            wav_dir.mkdir()
+            val_dir.mkdir()
+            for w_ in sorted((base / "train_corpus" / "train").glob("*.wav")):
+                shutil.copy(w_, wav_dir)
+            for w_ in sorted((base / "speech" / "val").glob("val_*.wav"))[:2]:
+                shutil.copy(w_, val_dir)
+            feats, sigs = voc_app.load_corpus(wav_dir, 15, dev)
+            steps = len(feats) // 32
+            vt["corpus"] = dict(chunks=len(feats), steps_per_epoch=steps)
+            print(f"vocoder training corpus: {len(feats)} chunks of 15 "
+                  f"frames, {steps} steps an epoch at B = 32")
+
+            def run_app(key, argv, predicted_d2):
+                zero_counts()
+                t0 = time.perf_counter()
+                hist = voc_app.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+                log_text = (Path(argv[1]) / "training.log").read_text()
+                report["main_path"][key] = dict(
+                    wall_s=wall, epoch_losses=hist, launches=launches,
+                    d2_predicted=predicted_d2,
+                    log=[l.split("]: ")[-1] for l in log_text.splitlines()])
+                print(f"{key}: {len(hist)} epochs in {wall:.1f} s, losses "
+                      f"{hist}; launches {launches} (D2 predicted "
+                      f"{predicted_d2})")
+                if not np.all(np.isfinite(hist)):
+                    raise AssertionError(f"{key}: a non-finite loss {hist}")
+                if launches["lpc_recursion"] != predicted_d2:
+                    raise AssertionError(f"{key}: D2 launched "
+                                         f"{launches['lpc_recursion']} times")
+                return log_text
+
+            # -- the app at bunch 1: teacher-forced (epoch 1), scheduled
+            # sampling (2-3), free-running (4); pruning 0.6 -> 0.2; scoring
+            # at epochs 2 (density 0.6: rejected) and 4 (saved)
+            out1 = base / "b1"
+            b1_flags = [str(wav_dir), str(out1), "--batch", "32",
+                        "--chunk-frames", "15", "--sampled-noise-after", "1",
+                        "--freerun-after", "3", "--grad-clip", "1.0",
+                        "--rollout-detach", "160", "--density", "0.2",
+                        "--lr-decay", "5e-5", "--val-wav", str(val_dir),
+                        "--score-every", "2", "--val-max-wavs", "2",
+                        "--device", "cuda"]
+            log1 = run_app("train_vocoder_b1", b1_flags + ["--epochs", "4"],
+                           steps * (1 + 2 + 2 + 1))
+            k2 = report["main_path"]["train_vocoder_b1"]["launches"][
+                "lpcnet_sampler_b1"]
+            if k2 == 0 or "Epoch 002: new best" in log1 or \
+                    "Epoch 004: new best" not in log1 or \
+                    not (out1 / "vocoder_best.npz").exists():
+                raise AssertionError(f"bunch 1: K2 {k2} launches; the best "
+                                     f"gate:\n{log1}")
+
+            # -- the card-trained checkpoint on the kernel's sparse path
+            with np.load(out1 / "vocoder_best.npz") as z:
+                ck = {k: z[k] for k in z.files}
+            pattern, kept = tile_sparse_pattern(ck["gru_a_mask"])
+            n_kept = sum(len(p_) for p_ in pattern)
+            cparams = _load_params(ck, dev)
+            cmodel = tnet.LPCNetModel.from_params(cparams)
+            cw = prepare_sampler_weights(cparams)
+            wh = cw["wh_a"].cpu().numpy()
+            compacted = compact_gru_a_tiles(wh, wh != 0)[1].shape[0]
+            carry, cond, lpc_c, temp = inputs(50, 3, model=cmodel,
+                                              params=cparams)
+            temp = -torch.ones_like(temp)
+            kc, ks = sampler_frames(cw, carry, cond, lpc_c, temp, None)
+            pc, ps = sampler_frames_plain(cw, carry, cond, lpc_c, temp, None)
+            torch.cuda.synchronize()
+            err = float((ks - ps).abs().max())
+            zero_counts()
+            pcm = LPCNet(backend="net", weights=str(out1 / "vocoder_best.npz"),
+                         device=dev).synthesize_frames(
+                             f[0, :10].numpy())
+            loaded = read_counts()["lpcnet_sampler_b1"]
+            vt["card_checkpoint"] = dict(
+                tiles_kept=n_kept, kept_fraction=kept,
+                tiles_compacted_for_kernel=compacted,
+                mask_density=float(ck["gru_a_mask"].mean()),
+                greedy_50_frames_max_abs_err=err,
+                greedy_exc_equal=bool(torch.equal(kc[3], pc[3])),
+                lpcnet_launches=loaded)
+            print(f"card-trained checkpoint: {n_kept} of 216 GRU-A tiles kept "
+                  f"({kept:.3f}), {compacted} compacted for the kernel; 50 "
+                  f"frames greedy through K2 vs plain: max err {err:.3g}, "
+                  f"excitations equal {torch.equal(kc[3], pc[3])}; LPCNet "
+                  f"launched K2 {loaded} time(s)")
+            if n_kept != 43 or compacted != 43 or not err <= 1e-5 or \
+                    not torch.equal(kc[3], pc[3]) or loaded != 1 or \
+                    len(pcm) != 1600:
+                raise AssertionError("the card-trained checkpoint is not on "
+                                     "the kernel's sparse path")
+
+            # -- the app at bunch 8: teacher-forced, then free-running; the
+            # ramp reaches 0.2 in the first epoch; one scoring (K3)
+            out8 = base / "b8"
+            log8 = run_app("train_vocoder_b8", [
+                str(wav_dir), str(out8), "--bunch", "8", "--epochs", "2",
+                "--freerun-after", "1", "--density", "0.2", "--val-wav",
+                str(val_dir), "--score-every", "2", "--val-max-wavs", "2",
+                "--device", "cuda"], steps * 2)
+            k3 = report["main_path"]["train_vocoder_b8"]["launches"][
+                "lpcnet_sampler_bunched"]
+            if k3 == 0 or "Epoch 002: new best" not in log8 or \
+                    not (out8 / "vocoder_best.npz").exists():
+                raise AssertionError(f"bunch 8: K3 {k3} launches:\n{log8}")
+
+            # -- a falling loss: 30 teacher-forced steps on one batch; then
+            # each stage's step time (events over back-to-back steps) and
+            # device split (profiler; the free-running stages over a
+            # 5-frame chunk: the same per-sample step, fewer of them)
+            fb, sb = feats[:32], sigs[:32]
+            tr1 = VocoderTrainer(tnet.LPCNetModel(), device=dev, seed=1,
+                                 grad_clip=1.0, rollout_detach=160,
+                                 lr_decay=5e-5)
+            tr1.init()
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses = [tr1.train_step(fb, sb) for _ in range(30)]
+            end.record()
+            end.synchronize()
+            tf_d2 = read_counts()["lpc_recursion"] / 30
+            losses = [float(v) for v in losses]
+            tr8 = VocoderTrainer(tnet.LPCNetModel(bunch=8), device=dev, seed=1)
+            tr8.init()
+            short = (fb[:, :5], sb[:, :800])
+            stages = {
+                "b1_teacher_forced": (tr1.train_step, 1),
+                "b1_sampled": (tr1.train_step_sampled, 2),
+                "b1_freerun": (tr1.train_step_freerun, 1),
+                "b8_teacher_forced": (tr8.train_step, 1),
+                "b8_freerun": (tr8.train_step_freerun, 1)}
+            st_rep = vt["stages"] = {}
+            for name, (fn, d2_per_step) in stages.items():
+                free = "freerun" in name
+                if name == "b1_teacher_forced":
+                    ms, n_d2 = start.elapsed_time(end) / 30, tf_d2
+                else:
+                    reps = 1 if free else 5
+                    zero_counts()
+                    torch.cuda.reset_peak_memory_stats()
+                    ms = cuda_ms(lambda: fn(fb, sb), reps, warmup=0)
+                    n_d2 = read_counts()["lpc_recursion"] / reps
+                split = device_split(lambda: fn(*short) if free
+                                     else fn(fb, sb), warm=not free)
+                st_rep[name] = dict(ms=ms, d2_launches_a_step=n_d2,
+                                    peak_gb=torch.cuda.max_memory_allocated()
+                                    / 1e9, device_split=split,
+                                    split_chunk_frames=5 if free else 15)
+                print(f"stage {name}: {ms:.1f} ms a step (events), D2 "
+                      f"{n_d2} a step, peak {st_rep[name]['peak_gb']:.2f} GB "
+                      f"allocated; device split over a "
+                      f"{5 if free else 15}-frame chunk: {split['kernels']} "
+                      f"kernels, {split['device_ms']:.1f} ms busy in "
+                      f"{split['wall_ms']:.1f} ms "
+                      f"({100 * split['device_ms'] / split['wall_ms']:.0f}%)")
+                if n_d2 != d2_per_step:
+                    raise AssertionError(f"{name}: D2 {n_d2} a step")
+            vt["falling_loss"] = losses
+            print(f"30 teacher-forced steps on one batch: loss "
+                  f"{np.mean(losses[:5]):.4f} -> {np.mean(losses[-5:]):.4f}")
+            if not (np.all(np.isfinite(losses))
+                    and np.mean(losses[-5:]) < np.mean(losses[:5])):
+                raise AssertionError(f"the CE did not fall: {losses}")
+
+            # -- --resume of the bunch-1 run for one more epoch
+            zero_counts()
+            hist = voc_app.main(b1_flags + ["--epochs", "5", "--resume"])
+            blob = torch.load(out1 / "train_state.pth", map_location="cpu")
+            vt["resume"] = dict(epoch_losses=hist, epoch=blob["extra"]["epoch"],
+                                launches=read_counts())
+            print(f"--resume: {len(hist)} epoch, losses {hist}, epoch counter "
+                  f"{blob['extra']['epoch']}")
+            if len(hist) != 1 or blob["extra"]["epoch"] != 5 or \
+                    not np.all(np.isfinite(hist)):
+                raise AssertionError("--resume did not continue the run")
+
+            # -- a fine-tune of the shipped checkpoint (mask inherited at
+            # 0.199: pruning off), scored with the JAX package's gates
+            out_ft = base / "ft"
+            shipped = ROOT / "weights" / "vocoder_speech.npz"
+            hist = voc_app.main([str(wav_dir), str(out_ft), "--epochs", "1",
+                                 "--lr", "1e-5", "--init-weights",
+                                 str(shipped), "--device", "cuda"])
+            log_ft = (out_ft / "training.log").read_text()
+            with np.load(shipped) as a, np.load(out_ft / "vocoder.npz") as b:
+                same_mask = bool(np.array_equal(a["gru_a_mask"],
+                                                b["gru_a_mask"]))
+            val = base / "speech" / "val"
+            _, audio = wavread(val / "val_00.wav")
+            words = {w_.name.split("_")[1]: wavread(w_)[1]
+                     for w_ in sorted(val.glob("kw_*_0.wav"))}
+            zero_counts()
+            sc = net_scores(LPCNet(backend="net",
+                                   weights=str(out_ft / "vocoder.npz"),
+                                   device=dev), audio, words, dev)
+            vt["fine_tune"] = dict(epoch_losses=hist, mask_inherited=same_mask,
+                                   scores=sc, launches=read_counts())
+            print(f"fine-tune of vocoder_speech.npz (1 epoch, lr 1e-5): "
+                  f"losses {hist}, mask inherited {same_mask}; scores {sc}")
+            failed = [n for n, ok in net_gates("fine-tuned", sc) if not ok]
+            if failed or not same_mask or len(words) != 6 or \
+                    "pruning disabled, mask inherited" not in log_ft:
+                raise AssertionError(f"fine-tune: gates failed {failed}, mask "
+                                     f"inherited {same_mask}")
+        vt["wall_s"] = time.perf_counter() - t_phase
+        print(f"vocoder training phase: {vt['wall_s']:.1f} s wall")
+    ph.run("vocoder training (D2, card vs CPU step, the app at bunch 1 and 8, "
+           "the card-trained checkpoint on K2, resume, fine-tune scores)",
+           vocoder_training)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1683,23 +2085,29 @@ def main(report_path=None) -> int:
         "lpcnet_sampler_bunched": (
             "cuda", "dss_tpu_torch/csrc/lpcnet_sampler_bunched.cu",
             "dss_tpu/ops/pallas/sampler.py:827"),
-        # No TPU kernel: the JAX package runs this loop as lax.scan.
+        # No TPU kernel: the JAX package runs these loops as lax.scan.
         "dsp_synthesis": ("cuda", "dss_tpu_torch/csrc/dsp_synthesis.cu",
                           "dss_tpu/vocoder/dsp.py:67"),
+        "lpc_recursion": ("cuda", "dss_tpu_torch/csrc/lpc_recursion.cu",
+                          "dss_tpu/train/trainer_vocoder.py:142"),
     }
     # Each kernel's launches on the main path that runs it: the front-end
     # kernel and the sampler at bunch 1 (K2) on the bunch-1 word path, the
     # sampler at bunch 8 (K3) on the bunch-8 word path.  The standalone
     # log-power kernel is on neither path since the front-end kernel took
     # its place; its count is read on the bunch-8 path (0).  D1 on the
-    # shipped configuration as the INI resolves on the card.
+    # shipped configuration as the INI resolves on the card.  D2 on the
+    # vocoder training app's bunch-1 run.
     path_of = {"log_power": "b8", "filter_log_power": "b1",
                "lpcnet_sampler_b1": "b1", "lpcnet_sampler_bunched": "b8",
-               "dsp_synthesis": "ship_resolved"}
+               "dsp_synthesis": "ship_resolved",
+               "lpc_recursion": "train_vocoder_b1"}
     # Every run whose counts were zeroed before it and read after it: the
     # word paths and the shipped configuration, and on the training path
     # corpus preparation (the front-end kernel once a trial), the decoder
-    # app (D1 once a synthesis job) and the scoring (K2, K3, D1).
+    # app (D1 once a synthesis job) and the scoring (K2, K3, D1); the vocoder
+    # training app's runs at bunch 1 and 8 (D2 each step, K2 / K3 in their
+    # validation scoring).
     tp = report["training_path"]
     runs = {p: mp["launches"] for p, mp in report["main_path"].items()}
     runs.update({"training_corpus": tp["corpus"]["launches"],

@@ -10,12 +10,14 @@ each array), so this module needs no JAX:
 * Vocoder: the flat dict of arrays -> a dict of tensors; the port keeps
   the JAX layouts ([in, out]) at its public functions.
 * Optimizer: the JAX ``torch_rmsprop`` state ``{"sq": params pytree}`` ->
-  the ``state`` entry of the port's ``torch.optim.RMSprop`` state_dict.
+  the ``state`` entry of the port's ``torch.optim.RMSprop`` state_dict; the
+  vocoder trainer's optax Adam state (``ScaleByAdamState``: ``mu``, ``nu``,
+  ``count``) -> that of its ``torch.optim.Adam``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -79,3 +81,40 @@ def vocoder_params(params: Mapping, device="cpu") -> Dict[str, torch.Tensor]:
     and ``fc_out{1,2}_b`` carry over like any other; ``LPCNetModel
     .from_params`` reads the bunch from them."""
     return _load_params(dict(params), device)
+
+
+def adam_state(opt_state, params: Mapping[str, torch.Tensor]
+               ) -> Tuple[Dict[int, Dict[str, torch.Tensor]], int]:
+    """The JAX vocoder trainer's optax Adam state (the optimizer state
+    pytree with numpy leaves; its ``ScaleByAdamState`` holds ``mu``, ``nu``
+    and ``count``) -> (the ``state`` entry of a ``torch.optim.Adam``
+    state_dict over the trainable parameters of ``params`` in their order
+    (every key but ``gru_a_mask``, as ``VocoderTrainer.init`` builds it),
+    the count of applied updates).  ``VocoderTrainer.load_optimizer_state``
+    takes both.  The moments are copies: the optimizer updates its state in
+    place."""
+    stack = [opt_state]
+    adam = None
+    while stack:
+        s = stack.pop()
+        if hasattr(s, "mu") and hasattr(s, "nu"):
+            adam = s
+            break
+        if isinstance(s, (tuple, list)):
+            stack.extend(s)
+    if adam is None:
+        raise ValueError("adam_state: no ScaleByAdamState (mu, nu, count) in "
+                         "the optimizer state")
+    count = int(np.asarray(adam.count))
+    out = {}
+    for i, k in enumerate(k for k in params if k != "gru_a_mask"):
+        p = params[k]
+        moments = {}
+        for name, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+            m = np.asarray(tree[k], np.float32)
+            if m.shape != tuple(p.shape):
+                raise ValueError(f"adam_state: {k} is {tuple(p.shape)} in the "
+                                 f"parameters, {m.shape} in the state")
+            moments[name] = torch.tensor(m, device=p.device)  # a copy
+        out[i] = {"step": torch.tensor(float(count)), **moments}
+    return out, count

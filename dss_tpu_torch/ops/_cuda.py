@@ -106,6 +106,9 @@ def library(defines: Sequence[str] = ()) -> ctypes.CDLL:
                 fn.restype = _I
             lib.dss_dsp_synthesis.argtypes = [_P] * 13 + [_I] * 2 + [_P]
             lib.dss_dsp_synthesis.restype = _I
+            lib.dss_lpc_recursion.argtypes = ([_P] * 8 + [_I] * 4
+                                              + [ctypes.c_float, _P])
+            lib.dss_lpc_recursion.restype = _I
             lib.dss_empty_launch.argtypes = [_I, _P]
             lib.dss_empty_launch.restype = _I
             lib.dss_lpcnet_sampler_bunched.argtypes = (

@@ -1,9 +1,12 @@
-"""Training of the nVAD and the decoder (counterpart of dss_tpu/train)."""
+"""Training of the nVAD, the decoder and the neural vocoder (counterpart of
+dss_tpu/train)."""
 
-from .checkpoints import StoreBestModel, load_train_state, save_train_state
+from .checkpoints import StoreBestModel, load_train_state, \
+    save_train_state, save_vocoder_params
 from .dataset import SequentialSpeechTrials, padded_batches
-from .optim import torch_rmsprop
+from .optim import torch_adam, torch_rmsprop
 from .synth_queue import AsynchronousSynthesisQueue
+from .trainer_vocoder import VocoderBatch, VocoderTrainer, prepare_utterance
 
 __all__ = [
     "SequentialSpeechTrials",
@@ -11,6 +14,11 @@ __all__ = [
     "StoreBestModel",
     "save_train_state",
     "load_train_state",
+    "save_vocoder_params",
     "torch_rmsprop",
+    "torch_adam",
+    "VocoderTrainer",
+    "VocoderBatch",
+    "prepare_utterance",
     "AsynchronousSynthesisQueue",
 ]

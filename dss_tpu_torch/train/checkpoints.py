@@ -8,20 +8,27 @@ both packages read (``lstm.{weight,bias}_{ih,hh}_l{k}[_reverse]`` plus
 ``classifier.*`` or ``regressor.*``): a ``.pth`` through ``torch.save``,
 any other name an ``.npz`` through ``np.savez``.
 
-The training state is the port's own format: the model's and the
-optimizer's ``state_dict`` and a dict of extras, through ``torch.save``.
-The JAX package pickles optax pytrees instead; ``convert.rmsprop_state``
-carries such an optimizer state over.
+The vocoder's weights are an ``.npz`` of every parameter in the JAX
+layouts (``save_vocoder_params``), which both packages load.
+
+The training state is the port's own format (``train_state.pth``): the
+model's (or the vocoder's parameter dict's) and the optimizer's state, the
+learning-rate scheduler's when there is one, and a dict of extras, through
+``torch.save``.  The JAX package pickles optax pytrees instead;
+``convert.rmsprop_state`` and ``convert.adam_state`` carry such an
+optimizer state over.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+Params = Dict[str, torch.Tensor]
 
 logger = logging.getLogger("dss_tpu_torch.train.checkpoints")
 
@@ -74,20 +81,49 @@ class StoreBestModel:
         return updated
 
 
-def save_train_state(filename: str, model: nn.Module,
+def save_vocoder_params(filename: str, params: Dict[str, torch.Tensor]
+                        ) -> None:
+    """Write a vocoder parameter dict as an ``.npz``, key for key in the JAX
+    layouts, mask included (as apps/train_vocoder.py's ``np.savez``), so
+    that both packages load it."""
+    np.savez(filename, **{k: v.detach().cpu().numpy()
+                          for k, v in params.items()})
+
+
+def save_train_state(filename: str, model: Union[nn.Module, Params],
                      optimizer: torch.optim.Optimizer,
-                     extra: Optional[dict] = None) -> None:
-    """Persist the full training state (model, optimizer, extras)."""
-    torch.save({"model": model.state_dict(),
-                "optimizer": optimizer.state_dict(),
-                "extra": extra or {}}, filename)
+                     extra: Optional[dict] = None,
+                     scheduler=None) -> None:
+    """Persist the full training state: the model (an ``nn.Module``, or a
+    parameter dict such as the vocoder trainer's), the optimizer, the
+    learning-rate scheduler when there is one, and the extras."""
+    state = model.state_dict() if isinstance(model, nn.Module) else \
+        {k: v.detach() for k, v in model.items()}
+    blob = {"model": state, "optimizer": optimizer.state_dict(),
+            "extra": extra or {}}
+    if scheduler is not None:
+        blob["scheduler"] = scheduler.state_dict()
+    torch.save(blob, filename)
 
 
-def load_train_state(filename: str, model: nn.Module,
-                     optimizer: torch.optim.Optimizer) -> dict:
-    """Load a state written by ``save_train_state`` into ``model`` and
-    ``optimizer`` (moved to the model's device); returns the extras."""
+def load_train_state(filename: str, model: Union[nn.Module, Params],
+                     optimizer: torch.optim.Optimizer, scheduler=None
+                     ) -> dict:
+    """Load a state written by ``save_train_state`` into ``model`` (a
+    module, or a parameter dict updated in place, which must hold the same
+    keys), ``optimizer`` (moved to the model's device) and ``scheduler``;
+    returns the extras."""
     blob = torch.load(filename, map_location="cpu")
-    model.load_state_dict(blob["model"])
+    if isinstance(model, nn.Module):
+        model.load_state_dict(blob["model"])
+    else:
+        if sorted(blob["model"]) != sorted(model):
+            raise ValueError(f"load_train_state: {filename} holds other "
+                             f"parameters than the model")
+        with torch.no_grad():
+            for k, v in blob["model"].items():
+                model[k].copy_(v)
     optimizer.load_state_dict(blob["optimizer"])
+    if scheduler is not None and "scheduler" in blob:
+        scheduler.load_state_dict(blob["scheduler"])
     return blob.get("extra", {})

@@ -87,6 +87,72 @@ class LPCNetModel:
                    embed_dim=params["emb_sig"].shape[1],
                    bunch=_sampler.bunch_of(params))
 
+    # -- parameters ----------------------------------------------------
+    def init(self, generator: torch.Generator, device=None) -> Params:
+        """Fresh parameters: the JAX package's keys, shapes and dtypes
+        (float32), Glorot-uniform matrices and embeddings drawn from
+        ``generator`` (on its device, in the JAX dict's key order), ones for
+        the head gains and the mask, zeros for the biases.  The stream is the
+        port's own: the same seed does not give the JAX draws."""
+        dev = resolve_device(device)
+        S = self.bunch
+        ed, cd = self.embed_dim, self.cond_dim
+        ga, gb = self.gru_a_units, self.gru_b_units
+        L = MULAW_LEVELS
+
+        def g(shape):
+            lim = float(np.sqrt(6.0 / (shape[0] + shape[1])))
+            u = torch.rand(shape, generator=generator,
+                           device=generator.device)
+            return ((2.0 * u - 1.0) * lim).to(dev)
+
+        def ones(n):
+            return torch.ones(n, device=dev)
+
+        def zeros(n):
+            return torch.zeros(n, device=dev)
+
+        p: Params = {}
+        for j in range(1, S):
+            p[f"emb_sig_l{j}"] = g((L, ed))
+            p[f"emb_exc_l{j}"] = g((L, ed))
+            p[f"fc_out1_w_b{j}"] = g((gb, L))
+            p[f"fc_out2_w_b{j}"] = g((gb, L))
+            p[f"fc_out1_g_b{j}"] = ones(L)
+            p[f"fc_out2_g_b{j}"] = ones(L)
+            p[f"fc_out_b_b{j}"] = zeros(L)
+            p[f"bunch_exc_emb_b{j}"] = g((L, L))
+            p[f"bunch_pred_emb_b{j}"] = g((L, L))
+        p.update({
+            "emb_sig": g((L, ed)),
+            "emb_pred": g((L, ed)),
+            "emb_exc": g((L, ed)),
+            "conv1_w": g((CONV_WIDTH * NB_FEATURES, cd)),
+            "conv1_b": zeros(cd),
+            "conv2_w": g((CONV_WIDTH * cd, cd)),
+            "conv2_b": zeros(cd),
+            "fc1_w": g((cd, cd)),
+            "fc1_b": zeros(cd),
+            "fc2_w": g((cd, cd)),
+            "fc2_b": zeros(cd),
+            "gru_a_wx": g(((2 * S + 1) * ed + cd, 3 * ga)),
+            "gru_a_wh": g((ga, 3 * ga)),
+            "gru_a_bx": zeros(3 * ga),
+            "gru_a_bh": zeros(3 * ga),
+            "gru_b_wx": g((ga + cd, 3 * gb)),
+            "gru_b_wh": g((gb, 3 * gb)),
+            "gru_b_bx": zeros(3 * gb),
+            "gru_b_bh": zeros(3 * gb),
+            "fc_out1_w": g((gb, L)),
+            "fc_out2_w": g((gb, L)),
+            "fc_out1_g": ones(L),
+            "fc_out2_g": ones(L),
+            "fc_out_b": zeros(L),
+            # All ones = dense; the trainer prunes it (VocoderTrainer.sparsify).
+            "gru_a_mask": torch.ones((ga, 3 * ga), device=dev),
+        })
+        return p
+
     # -- frame-rate network --------------------------------------------
     def condition(self, params: Params, features: torch.Tensor
                   ) -> torch.Tensor:

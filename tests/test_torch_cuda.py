@@ -24,6 +24,8 @@ from dss_tpu_torch.ops.filter_log_power import filter_log_power, \
 from dss_tpu_torch.ops.frames import log_power_frames
 from dss_tpu_torch.ops.hga import HighGammaExtractor
 from dss_tpu_torch.ops.log_power import log_power, log_power_plain
+from dss_tpu_torch.ops.lpc_recursion import lpc_recursion, \
+    lpc_recursion_plain
 from dss_tpu_torch.ops.sampler import kernel_plan, \
     prepare_bunched_sampler_weights, prepare_sampler_weights, sampler_frames, sampler_frames_bunched, \
     sampler_frames_bunched_plain, sampler_frames_plain
@@ -558,3 +560,82 @@ def test_decoder_step_on_the_card_matches_the_cpu(dev):
     again.train_step(x, y, torch.as_tensor(m, device=dev))
     for p, q in zip(again.model.parameters(), card.model.parameters()):
         torch.testing.assert_close(p.grad, q.grad, atol=1e-6, rtol=0)
+
+
+def _recursion_inputs(B, T, seed):
+    """Seeded features' per-frame LPC taps [B, T, 16] and a voiced-like
+    pre-emphasized signal [B, T*160]."""
+    g = torch.Generator().manual_seed(seed)
+    f = torch.randn((B, T, 20), generator=g) * 0.3
+    f[..., 0] -= 4.0
+    lpc, _ = lpc_from_bands(bands_from_cepstrum(f[..., :18]))
+    t = torch.arange(T * 160)
+    period = 40 + 80 * torch.rand((B, 1), generator=g)
+    sig = 0.3 * torch.sin(2 * np.pi * t[None] / period) \
+        + 0.02 * torch.randn((B, T * 160), generator=g)
+    return f, lpc, sig.float(), g
+
+
+@pytest.mark.parametrize("mode", ["noise", "feedback"])
+def test_lpc_recursion_kernel_matches_plain(dev, mode):
+    """D2 at the trainer's shape (B = 32, 15 frames) in both modes, against
+    its plain version on the same CUDA tensors: all four outputs bit for
+    bit, one launch."""
+    _, lpc, sig, g = _recursion_inputs(32, 15, 5)
+    inj = torch.randint(-2, 3, sig.shape, generator=g) if mode == "noise" \
+        else torch.randint(0, 256, sig.shape, generator=g)
+    args = (sig.to(dev), lpc.to(dev), inj.to(dev), mode == "feedback", 24)
+    before = lpc_recursion.launches
+    got = lpc_recursion(*args)
+    torch.cuda.synchronize()
+    assert lpc_recursion.launches == before + 1
+    want = lpc_recursion_plain(*args)
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), name
+
+
+def test_lpc_recursion_kernel_refuses_what_it_does_not_take(dev):
+    _, lpc, sig, _ = _recursion_inputs(2, 2, 6)
+    with pytest.raises(ValueError, match="require grad"):
+        lpc_recursion(sig.to(dev).requires_grad_(), lpc.to(dev))
+    with pytest.raises(ValueError, match="lpc must be"):
+        lpc_recursion(sig.to(dev), lpc[:, :1].to(dev))
+    with pytest.raises(TypeError, match="int64"):
+        lpc_recursion(sig.to(dev), lpc.to(dev),
+                      torch.zeros(sig.shape, dtype=torch.int32, device=dev))
+
+
+def test_vocoder_teacher_forced_step_on_the_card_matches_the_cpu(dev):
+    """The full-width teacher-forced step (GRU-A 384, B = 4, 2400 samples)
+    on the card against the CPU, from the same parameters and the card's
+    recursion (D2) on the same injected noise: the loss rtol 1e-5, every
+    gradient rtol 1e-4 with atol 1e-4 of its tensor's largest element
+    (cuDNN's GRU backward over 2400 steps sums in its own order).  The
+    recursion is shared because the two devices' LPC taps differ by
+    rounding, which can move a prediction across a mu-law level's edge."""
+    from dss_tpu_torch.train.trainer_vocoder import VocoderTrainer
+    f, lpc, sig, g = _recursion_inputs(4, 15, 7)
+    noise = torch.randint(-2, 3, sig.shape, generator=g)
+    params = tnet.LPCNetModel().init(torch.Generator().manual_seed(1), "cpu")
+    out = {}
+    rec = None
+    for d in (dev, torch.device("cpu")):
+        tr = VocoderTrainer(tnet.LPCNetModel(), device=d)
+        p = tr.init(params)
+        if rec is None:
+            _, lpc_d, _ = tr._prepare_cond(p, f.to(d))
+            rec = tr._recursion(sig.to(d), lpc_d, noise=noise.to(d))
+            full = tr._loss(p, f.to(d), sig.to(d), noise.to(d))
+        cond, _, _ = tr._prepare_cond(p, f.to(d))
+        loss = tr._forward_ce(p, cond.repeat_interleave(160, 1),
+                              *(r.to(d) for r in rec))
+        gs = torch.autograd.grad(loss, [p[k] for k in tr.trainable])
+        out[d.type] = (loss.detach().cpu(),
+                       {k: v.cpu() for k, v in zip(tr.trainable, gs)})
+    assert torch.equal(full.detach().cpu(), out["cuda"][0])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for k, want in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()),
+                                   msg=k)
