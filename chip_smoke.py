@@ -107,6 +107,29 @@
    teacher-forced steps on one batch whose loss must fall; --resume to a
    fifth epoch; one epoch's fine-tune of weights/vocoder_speech.npz at lr
    1e-5 (its mask inherited) scored with the gates above.
+   Then the single-card remainder: an LPCNet checkpoint in the xiph Keras
+   layout at the released widths (dense GRU-A 384, GRU-B 16, embedding and
+   conditioning 128, pitch embedding 64, the MDense inner biases), built
+   in memory from a seed (tests/torch_xiph.py) and mapped by
+   ``vocoder.interop.params_from_datasets``, greedy through K2 over 50
+   frames and over one whole-call 300-frame block (the pitch net's
+   same-padded conditioning) against the float32 plain version on the
+   host (samples atol 1e-6; the runs may part only after their encoded
+   inputs straddle a mu-law level edge), timed, with the kernel's plan
+   (GRU-A streamed, not resident) and LPCNet on it;
+   weights/vocoder_speech_b8.npz exported to the Keras datasets and
+   re-imported (every array bit for bit), greedy through K3 equal to the
+   direct load.  The contamination permutation test on a synthetic
+   10-minute, 128-channel day: 10,000 surrogates on the card, the first 16
+   against the numpy plain version (rtol 1e-4, on a pool of host
+   processes), with the criterion P.  And the bunch-1 word path's session
+   once more over a real socket (the port's amplifier as a process of its
+   own, the graph's ZMQConnector) under ``utils.profiling.device_trace``:
+   every packet ingested and the words equal to the in-process replay's
+   bit for bit; the device's busy share, the top kernels, the kernels a
+   packet call and a word (by launching thread); it fails without CUDA
+   kernel events or without the front-end kernel and the sampler in the
+   trace.
 4. Prints the kernels' line, latencies, the card's name and power limit,
    and last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
    without that line.  ``--report PATH`` also writes every measurement
@@ -117,11 +140,18 @@ Imports torch, numpy and scipy only (no jax, nothing of dss_tpu).
 
 import argparse
 import json
+import logging
+import multiprocessing
+import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -176,14 +206,94 @@ def session(seconds=16.0, bursts=((2.0, 3.5), (7.0, 8.5), (12.0, 13.5)),
     """The synthetic session of tools/make_verify_fixtures.py (6 s, one
     loud burst at 2.0-3.5 s), continued with two more bursts so that a run
     also shows word heads after the first: its first 6 s are that
-    fixture's samples."""
+    fixture's samples, rounded to float32 as the amplifier's packets carry
+    them, so a replay in-process and one over ZMQ feed the graph the same
+    values."""
     fs = 1000
     rng = np.random.default_rng(seed)
     T = int(seconds * fs)
     envelope = np.full(T, 0.05)
     for start, stop in bursts:
         envelope[int(start * fs):int(stop * fs)] = 2.0
-    return rng.normal(size=(T, 129)) * envelope[:, None]
+    return (rng.normal(size=(T, 129)) * envelope[:, None]).astype(
+        np.float32).astype(np.float64)
+
+
+def rolled_measures(a_path, b_path, max_lag, shifts):
+    """The contamination test's plain version on one pool worker:
+    ``lagged_correlation_measure`` of the audio spectrogram (``a_path``,
+    .npy) rolled by each of ``shifts`` against the channels' (``b_path``)
+    -> [(measure, seconds it took)]."""
+    from dss_tpu_torch.eval import contamination as tc
+    a, b = np.load(a_path), np.load(b_path, mmap_mode="r")
+    out = []
+    for shift in shifts:
+        t0 = time.perf_counter()
+        m, _ = tc.lagged_correlation_measure(np.roll(a, int(shift), axis=0),
+                                             b, max_lag)
+        out.append((m, time.perf_counter() - t0))
+    return out
+
+
+def free_port():
+    """A TCP port on localhost that nothing listens on now."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextmanager
+def amplifier(mat, port, timeout=60.0):
+    """The port's replay amplifier (``dss_tpu_torch.apps.
+    development_amplifier``) as a process of its own, streaming ``mat`` on
+    ``port`` in 40-sample packets.  It is imported first (this waits for
+    that) and starts streaming when the graph logs that its sources start,
+    so that neither its start-up nor the units' warm-ups eat into the
+    connector's idle window.  On exit it is waited for (killed after
+    ``timeout`` s) and must have exited cleanly."""
+    err_path = Path(mat).with_suffix(".amplifier.log")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys; from dss_tpu_torch.apps import "
+             "development_amplifier as a; print('imported', flush=True); "
+             "sys.stdin.readline(); a.main(sys.argv[1:])",
+             str(mat), "--package_size", "40", "--port", str(port)],
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+    if proc.stdout.readline().strip() != "imported":
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"the amplifier did not start: "
+                             f"{err_path.read_text()[-2000:]}")
+    started = []
+
+    class Go(logging.Handler):
+        def emit(self, record):
+            if "starting sources" in record.getMessage() and not started:
+                proc.stdin.write("go\n")
+                proc.stdin.flush()
+                started.append(time.perf_counter())
+
+    graph_log = logging.getLogger("dss_tpu_torch.runtime")
+    handler, level = Go(), graph_log.level
+    graph_log.addHandler(handler)
+    graph_log.setLevel(logging.INFO)
+    try:
+        yield
+    finally:
+        graph_log.removeHandler(handler)
+        graph_log.setLevel(level)
+        if not started:
+            proc.kill()
+        try:
+            proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"the amplifier exited {proc.returncode}: "
+                             f"{err_path.read_text()[-2000:]}")
 
 
 def threshold_vad():
@@ -246,6 +356,40 @@ def gathered_rows(S, carry, lpc, sig):
         corr += distinct(e_idx[:, S + n0 + j - 1])
         corr += distinct(p_idx[:, n0 + j])
     return emb, corr
+
+
+def mulaw_index(x):
+    """The mu-law level of each value, in float64 on the host."""
+    x = np.clip(x, -1.0, 1.0)
+    y = np.sign(x) * np.log1p(255.0 * np.abs(x)) / np.log1p(255.0)
+    return np.rint((y + 1.0) * 127.5).astype(np.int64)
+
+
+def parting(ks, ps, sig0, lpc, tol, frame=160):
+    """Where a greedy kernel run ``ks`` parts from its plain version ``ps``
+    (float64 [N] each): ``first``, the first sample more than ``tol`` apart
+    (None if none is); ``max_before``, the largest difference before it;
+    ``straddle``, the first step at or before it whose mu-law-encoded
+    inputs (the newest sample, and the LPC prediction recomputed in
+    float64 from each run's own history) fall on two levels in the two
+    runs, or None.  ``sig0`` is the carried history (newest first),
+    ``lpc`` [T, P] the frames' taps."""
+    d = np.abs(ks - ps)
+    over = np.flatnonzero(d > tol)
+    first = int(over[0]) if len(over) else None
+    end = len(ks) if first is None else first + 1
+    P = len(sig0)
+
+    def encoded(s):
+        hist = np.concatenate([sig0[::-1], s[:end]])  # oldest first
+        win = np.lib.stride_tricks.sliding_window_view(hist, P)[:end, ::-1]
+        pred = -(win * lpc[np.arange(end) // frame]).sum(1)
+        return mulaw_index(win[:, 0]), mulaw_index(pred)
+    (sk, pk), (sp, pp) = encoded(ks), encoded(ps)
+    straddle = np.flatnonzero((sk != sp) | (pk != pp))
+    return dict(first=first, max_before=float(d[:end - (first is not None)]
+                                              .max(initial=0.0)),
+                straddle=int(straddle[0]) if len(straddle) else None)
 
 
 def device_split(fn, warm=True):
@@ -360,11 +504,14 @@ def main(report_path=None) -> int:
     from dss_tpu_torch.vocoder import net as tnet
     from dss_tpu_torch.vocoder.lpc import bands_from_cepstrum, lpc_from_bands
     from dss_tpu_torch.vocoder.lpcnet import _load_params
+    from dss_tpu_torch.utils.profiling import device_trace, trace_files, \
+        trace_summary
     from dss_tpu_torch.vocoder.mulaw import MULAW_LEVELS
 
     dev = resolve_device("cuda")
     ph = Phases()
     report = {"kernels": {}, "main_path": {}}
+    outputs = {}  # main path run -> (the words' PCM, their decoded features)
 
     def build():
         t0 = time.perf_counter()
@@ -945,7 +1092,20 @@ def main(report_path=None) -> int:
     def read_counts():
         return {name: fn.launches for name, fn in counters.items()}
 
-    def main_path(key, weights_name, expect):
+    def main_path(key, weights_name, expect, trace_dir=None, zmq=False,
+                  splits=True):
+        """The word path through the graph, once; with ``trace_dir`` the
+        run is recorded by ``device_trace`` into that directory.  With
+        ``zmq`` the session comes over a real socket: the port's replay
+        amplifier runs as a process of its own, publishing on a free local
+        port from the moment the graph is up, and the graph's
+        ``ZMQConnector`` ingests it, as a deployment does; otherwise
+        ``PacketReplay`` replays it in-process.  ``splits`` also times a
+        word head and a packet step part by part after the run."""
+        from contextlib import nullcontext
+
+        from scipy.io import savemat
+
         from dss_tpu_torch import runtime as ez
         from dss_tpu_torch.apps.decode_online import feature_transforms
         from dss_tpu_torch.models.decoder import \
@@ -953,7 +1113,8 @@ def main(report_path=None) -> int:
         from dss_tpu_torch.models.vad import UnidirectionalVoiceActivityDetector
         from dss_tpu_torch.runtime.units import FusedDecoderVocoder, \
             FusedDecoderVocoderSettings, FusedFrontendVad, \
-            FusedFrontendVadSettings, PacketReplay, PacketReplaySettings
+            FusedFrontendVadSettings, PacketReplay, PacketReplaySettings, \
+            ZMQConnector, ZMQConnectorSettings
 
         class Sink(ez.Unit):
             AUDIO = ez.InputStream(ez.ClosedLoopMessage)
@@ -983,16 +1144,29 @@ def main(report_path=None) -> int:
             vad_path = Path(tmp) / "vad_threshold.npz"
             np.savez(vad_path, **threshold_vad())
             pre, post, nb = feature_transforms(None)
+            if zmq:
+                mat, port = Path(tmp) / "session.mat", free_port()
+                savemat(str(mat), {
+                    "signal": session(), "states": {
+                        "StimulusCode": np.zeros(16000, np.int16)},
+                    "parameters": {
+                        "SamplingRate": {"NumericValue": 1000},
+                        "SourceChGain": {"NumericValue": np.ones(129)},
+                        "Stimuli": {"Value": np.array([["Enter"]])}}})
 
             class System(ez.System):
-                SOURCE = PacketReplay()
+                SOURCE = ZMQConnector() if zmq else PacketReplay()
                 FRONTEND = FusedFrontendVad()
                 WORDS = FusedDecoderVocoder()
                 SINK = Sink()
 
                 def configure(self):
-                    self.SOURCE.apply_settings(PacketReplaySettings(
-                        data=session(), fs=1000, period=0.04))
+                    self.SOURCE.apply_settings(
+                        ZMQConnectorSettings(fs=1000, port=port,
+                                             address="127.0.0.1",
+                                             idle_timeout=3.0) if zmq else
+                        PacketReplaySettings(data=session(), fs=1000,
+                                             period=0.04))
                     self.FRONTEND.apply_settings(FusedFrontendVadSettings(
                         nb_features=nb, fs=1000, buffer_size=2000,
                         context_frames=50, pre_transforms=pre,
@@ -1027,18 +1201,25 @@ def main(report_path=None) -> int:
             mods = (hga_mod, filters_mod, flp_mod)
             for m in mods:
                 m.sosfilt_scan = guard
+            amp = amplifier(mat, port) if zmq else nullcontext()
             try:
-                zero_counts()
-                t0 = time.perf_counter()
-                ez.run_system(system)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                launches = read_counts()
+                with amp:
+                    zero_counts()
+                    t0 = time.perf_counter()
+                    with device_trace(trace_dir) if trace_dir else \
+                            nullcontext():
+                        ez.run_system(system)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = read_counts()
             finally:
                 for m in mods:
                     m.sosfilt_scan = sosfilt_scan
         sink = system.SINK
-        mp = report["main_path"][key] = {"vocoder_weights": weights_name}
+        outputs[key] = (sink.words, sink.lpc)
+        mp = report["main_path"][key] = {"vocoder_weights": weights_name,
+                                          "source": "zmq" if zmq else
+                                          "replay"}
         mp.update(
             wall_s=wall, launches=launches, words=len(sink.words),
             word_frames=[len(x) for x in sink.lpc],
@@ -1064,6 +1245,22 @@ def main(report_path=None) -> int:
                                      f"{len(lpc)} frames")
             if not np.all(np.isfinite(lpc)):
                 raise AssertionError("non-finite decoded features")
+        warm = len(system.FRONTEND._sizes)
+        mp["front_end_expected_launches"] = mp["packet_calls"] + warm
+        if eager_on_card:
+            raise AssertionError(f"the eager cascade ran on the card "
+                                 f"{len(eager_on_card)} time(s)")
+        if launches["filter_log_power"] != mp["packet_calls"] + warm:
+            raise AssertionError(
+                f"front-end kernel: {launches['filter_log_power']} launches "
+                f"for {mp['packet_calls']} packet calls + {warm} warm-up "
+                f"calls")
+        for name in expect:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"main path with {weights_name}")
+        if not splits:
+            return
         # Steady-state split of one word head (254 frames, after the run):
         # decode alone, then the first 50-frame vocoder chunk alone.
         seg = np.random.default_rng(1).normal(size=(254, nb)).astype(
@@ -1119,20 +1316,6 @@ def main(report_path=None) -> int:
               f"with a synchronize after each part): p50 "
               f"{mp['packet_step_split_p50']}, p95 "
               f"{mp['packet_step_split_p95']}")
-        warm = len(fe_unit._sizes)
-        mp["front_end_expected_launches"] = mp["packet_calls"] + warm
-        if eager_on_card:
-            raise AssertionError(f"the eager cascade ran on the card "
-                                 f"{len(eager_on_card)} time(s)")
-        if launches["filter_log_power"] != mp["packet_calls"] + warm:
-            raise AssertionError(
-                f"front-end kernel: {launches['filter_log_power']} launches "
-                f"for {mp['packet_calls']} packet calls + {warm} warm-up "
-                f"calls")
-        for name in expect:
-            if launches[name] <= 0:
-                raise AssertionError(f"kernel {name} never launched on the "
-                                     f"main path with {weights_name}")
     ph.run("main path, bunch 1 (frontend+nVAD -> decoder+vocoder)",
            lambda: main_path("b1", "vocoder_speech.npz",
                              ("filter_log_power", "lpcnet_sampler_b1")))
@@ -2060,6 +2243,279 @@ def main(report_path=None) -> int:
            "the card-trained checkpoint on K2, resume, fine-tune scores)",
            vocoder_training)
 
+    # ---- imported xiph checkpoints through the sampler kernel ---------------
+    def interop():
+        """A released-width checkpoint in the xiph Keras layout (built in
+        memory from a seed) mapped by ``params_from_datasets`` and run
+        greedy through K2 against the plain version; the b8 checkpoint
+        exported and re-imported, bit for bit, through K3."""
+        sys.path.insert(0, str(ROOT / "tests"))
+        from torch_xiph import RELEASED, xiph_datasets
+
+        from dss_tpu_torch.vocoder import LPCNet
+        from dss_tpu_torch.vocoder.interop import datasets_from_params, \
+            native_params_from_datasets, params_from_datasets
+        io = report["interop"] = {"b1": {}, "b8": {}}
+        ip, im = params_from_datasets(xiph_datasets(0))
+        widths = dict(gru_a=im.gru_a_units, gru_b=im.gru_b_units,
+                      cond=im.cond_dim, embed=im.embed_dim,
+                      pitch=ip["emb_pitch"].shape[1])
+        if widths != RELEASED or not ip["fc_out1_b"].any() or \
+                not np.all(ip["gru_a_mask"] == 1.0):
+            raise AssertionError(f"imported model {widths}")
+        tp_ = _load_params(ip, dev)
+        iw = tnet.sampler_weights_for(im, tp_)
+        plan = kernel_plan(iw, 1, im.cond_dim, 16)
+        io["b1"].update(widths=widths, plan=plan)
+        print(f"imported checkpoint {widths}, dense GRU-A (216 tiles), inner "
+              f"biases, pitch net; kernel plan {plan}")
+        if plan["gru_a_tiles_resident"]:
+            raise AssertionError("a dense GRU-A 384 cannot stay resident")
+        # Both runs are held against the plain version in float32 (on the
+        # host: the same inputs, copied) to 1e-6 a sample.  Over a long
+        # greedy call the two may part where a sample or a prediction falls
+        # within their last-bit difference of a mu-law level's edge and
+        # encodes to the neighbouring level; such a parting is accepted only
+        # where the two runs' encodings visibly straddle an edge at or
+        # before it.
+        tol = 1e-6
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            for frames in (50, 300):
+                # The pitch net conditions on the whole call: one block.
+                carry, cond, lpc, temp = inputs(frames, frames, im, tp_)
+                temp = -torch.ones_like(temp)
+                kc, ks = sampler_frames(iw, carry, cond, lpc, temp, None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pc, ps = sampler_frames_plain(
+                    {k: v.cpu() for k, v in iw.items() if torch.is_tensor(v)},
+                    tuple(x.cpu() for x in carry), cond.cpu(), lpc.cpu(),
+                    temp.cpu(), None)
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                part = parting(ks[0].double().cpu().numpy(),
+                               ps[0].double().numpy(),
+                               carry[2][0].double().cpu().numpy(),
+                               lpc[:, 0].double().cpu().numpy(), tol)
+                same_exc = torch.equal(kc[3].cpu(), pc[3])
+                ms = cuda_ms(lambda: sampler_frames(iw, carry, cond, lpc,
+                                                    temp, None), 3, warmup=1)
+                bound, bound_by, _, rows = sampler_bound(
+                    im, tp_, iw, 1, carry, cond, lpc, temp,
+                    torch.empty(0, device=dev), ks)
+                io["b1"][f"T{frames}"] = dict(
+                    tolerance=tol, max_abs_err=part["max_before"],
+                    parted_at=part["first"], straddle_at=part["straddle"],
+                    final_exc_equal=same_exc, ms=ms, plain_ms=plain_ms,
+                    plain_device="cpu", bound_ms=bound, bound_by=bound_by,
+                    bound_terms=rows,
+                    us_per_sample=ms * 1e3 / (frames * 160),
+                    rms=float(ks.pow(2).mean().sqrt()))
+                print(f"imported, greedy {frames} frames through K2: max err "
+                      f"{part['max_before']:.3g} against the float32 plain "
+                      f"version (host, {plain_ms:.0f} ms)"
+                      + (f" up to sample {part['first']}, where the runs "
+                         f"part after straddling a mu-law edge at step "
+                         f"{part['straddle']}" if part["first"] is not None
+                         else ", every sample; final excitation equal "
+                              f"{same_exc}")
+                      + f"; {ms:.1f} ms a call ({ms * 1e3 / (frames * 160):.2f}"
+                      f" us a sample); bound {bound:.4f} ms ({bound_by})")
+                if not part["max_before"] <= tol or \
+                        not bool(ks.abs().max() > 0) or \
+                        (part["first"] is None and not same_exc) or \
+                        (part["first"] is not None
+                         and part["straddle"] is None):
+                    raise AssertionError(f"imported K2 greedy {frames} "
+                                         f"frames: {part}")
+        finally:
+            torch.set_num_threads(threads)
+        feats = np.random.default_rng(11).normal(size=(300, 20)).astype(
+            np.float32) * 0.3
+        feats[:, 0] -= 4.0
+        voc = LPCNet(backend="net", model=im, weights=ip, device=dev)
+        zero_counts()
+        pcm = voc.synthesize_frames(feats)
+        io["b1"]["launches"] = read_counts()
+        if pcm.dtype != np.int16 or pcm.shape != (300 * 160,) or \
+                not pcm.any() or io["b1"]["launches"]["lpcnet_sampler_b1"] \
+                != 1:
+            raise AssertionError(f"LPCNet on the imported checkpoint: "
+                                 f"{pcm.dtype} {pcm.shape}, launches "
+                                 f"{io['b1']['launches']}")
+        # The b8 checkpoint: export to the Keras layout and back.
+        with np.load(ROOT / "weights" / "vocoder_speech_b8.npz") as z:
+            direct = {k: z[k] for k in z.files}
+        back, bm = native_params_from_datasets(datasets_from_params(direct))
+        exact = set(back) == set(direct) and all(
+            back[k].dtype == direct[k].dtype
+            and np.array_equal(back[k], direct[k]) for k in direct)
+        m8, p8, w8 = bunched[8]
+        wb = tnet.sampler_weights_for(bm, _load_params(back, dev))
+        carry, cond, lpc, temp = inputs(50, 8, m8, p8)
+        temp = -torch.ones_like(temp)
+        dc, ds = sampler_frames_bunched(w8, carry, cond, lpc, temp, None)
+        bc, bs = sampler_frames_bunched(wb, carry, cond, lpc, temp, None)
+        torch.cuda.synchronize()
+        same = torch.equal(bs, ds) and torch.equal(bc[3], dc[3])
+        zero_counts()
+        pcm8 = LPCNet(backend="net", weights=back, device=dev)\
+            .synthesize_frames(feats[:50])
+        io["b8"].update(params_bit_equal=exact, greedy_50_equal=same,
+                        keys=len(back), launches=read_counts())
+        print(f"b8 export -> re-import: {len(back)} arrays bit for bit "
+              f"{exact}; greedy 50 frames through K3 equal to the direct "
+              f"load {same}; LPCNet launches {io['b8']['launches']}")
+        if not exact or not same or pcm8.shape != (50 * 160,) or \
+                io["b8"]["launches"]["lpcnet_sampler_bunched"] != 1:
+            raise AssertionError("b8 re-import")
+    ph.run("interop (imported xiph checkpoint greedy through K2, 50 and "
+           "300 frames; b8 export -> re-import through K3)", interop)
+
+    # ---- the contamination permutation test -----------------------------
+    def contamination():
+        """A synthetic 10-minute day at 1 kHz and 128 channels (as
+        tests/test_eval.py builds its days): 10,000 surrogates on the card,
+        the first 16 against the numpy plain version."""
+        from dss_tpu_torch.eval import contamination as tc
+        T = 600 * 1000
+        rng = np.random.default_rng(13)
+        env = (np.sin(2 * np.pi * np.arange(T) / 4000) > 0).astype(float)
+        audio = rng.normal(size=T) * (0.1 + env)
+        ecog = rng.normal(size=(T, 128))
+        t0 = time.perf_counter()
+        a, b = tc.day_spectrograms(ecog, audio, 1000)
+        spec_s = time.perf_counter() - t0
+        L = int(tc.MAX_TIME_LAG * tc.SPG_FS)
+        t0 = time.perf_counter()
+        measure, _ = tc.lagged_correlation_measure(a, b, L)
+        measure_s = time.perf_counter() - t0
+        tc.surrogate_measures(a, b, L, 16, device=dev)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sur = tc.surrogate_measures(a, b, L, tc.NB_SURROGATES, device=dev)
+        card_s = time.perf_counter() - t0
+        # The plain version takes seconds a surrogate on one host core:
+        # the 16 run on a pool of processes, one core each.
+        shifts = tc.surrogate_shifts(len(a), L, 16)
+        workers = min(8, os.cpu_count() or 1)
+        with tempfile.TemporaryDirectory() as tmp:
+            np.save(Path(tmp) / "a.npy", a)
+            np.save(Path(tmp) / "b.npy", b)
+            t0 = time.perf_counter()
+            with ProcessPoolExecutor(
+                    workers,
+                    mp_context=multiprocessing.get_context("spawn")) as pool:
+                done = list(pool.map(
+                    rolled_measures, [Path(tmp) / "a.npy"] * workers,
+                    [Path(tmp) / "b.npy"] * workers, [L] * workers,
+                    np.array_split(shifts, workers)))
+            plain_wall_s = time.perf_counter() - t0
+        plain = np.array([m for part in done for m, _ in part])
+        plain_s = float(np.mean([t for part in done for _, t in part]))
+        rel = float(np.max(np.abs(sur[:16] - plain) / np.abs(plain)))
+        n, F, C = len(a), a.shape[1], b.shape[1]
+        flops = tc.NB_SURROGATES * sum(
+            n - abs(lag) for lag in range(-L, L + 1)) * C * F * 2
+        nbytes = (a.size + b.size + tc.NB_SURROGATES) * 4
+        t_f, t_b = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+        criterion = float((sur >= measure).mean())
+        report["contamination"] = dict(
+            frames=n, channels=C, freqs=F, surrogates=len(sur),
+            brain_spec_gb=b.size * 4 / 1e9, spectrogram_s=spec_s,
+            dataset_measure_s=measure_s, surrogates_s=card_s,
+            plain_s_per_surrogate=plain_s, plain_wall_s_16=plain_wall_s,
+            plain_workers=workers, max_rel_err_first_16=rel,
+            bound_s=max(t_f, t_b), bound_by="operations" if t_f > t_b
+            else "bytes", flops=flops, dataset_measure=measure,
+            criterion_p=criterion)
+        print(f"contamination, 10 min x 128 channels ({n} frames x {F} "
+              f"freqs, brain spectrogram {b.size * 4 / 1e9:.2f} GB f32 on "
+              f"the card): {len(sur)} surrogates in {card_s:.2f} s on the "
+              f"card, bound {max(t_f, t_b):.2f} s ({flops:.3g} flop); the "
+              f"first 16 within rtol {rel:.2g} of the numpy plain version "
+              f"({plain_s:.1f} s a surrogate on a host core, {plain_wall_s:.1f}"
+              f" s for the 16 on {workers} processes); spectrograms "
+              f"{spec_s:.1f} s, dataset measure {measure:.5f} "
+              f"({measure_s:.1f} s), criterion P {criterion:.4f}")
+        if sur.shape != (tc.NB_SURROGATES,) or not rel <= 1e-4 or \
+                not np.all(np.isfinite(sur)):
+            raise AssertionError("contamination surrogates")
+    ph.run("contamination (10,000 surrogates of a 10-minute, 128-channel "
+           "day on the card; the first 16 vs numpy)", contamination)
+
+    # ---- a whole word-path session under the profiler ------------------------
+    def session_trace():
+        """The bunch-1 word path's session once more, over a real socket:
+        the port's amplifier publishes it and the graph's ``ZMQConnector``
+        ingests it, recorded by ``device_trace``.  Every packet must arrive,
+        and the words must equal the in-process replay's (the bunch-1 main
+        path) bit for bit.  From the trace: the device's busy share, the top
+        kernels, and the kernels launched per packet call and per word by
+        the two units' executor threads."""
+        if "b1" not in outputs:
+            raise AssertionError("the bunch-1 main path did not run")
+        with tempfile.TemporaryDirectory() as tmp:
+            main_path("session_trace", "vocoder_speech.npz",
+                      ("filter_log_power", "lpcnet_sampler_b1"),
+                      trace_dir=tmp, zmq=True, splits=False)
+            (path,) = trace_files(tmp)
+            size = Path(path).stat().st_size
+            s = trace_summary(path, top=8)
+        mp = report["main_path"]["session_trace"]
+        (words, lpc), (ref_words, ref_lpc) = outputs["session_trace"], \
+            outputs["b1"]
+        sent = len(session()) // 40
+        same = len(words) == len(ref_words) and all(
+            np.array_equal(a, b) for a, b in zip(words, ref_words)) and all(
+            np.array_equal(a, b) for a, b in zip(lpc, ref_lpc))
+        mp.update(packets_sent=sent, equal_to_replay=same)
+
+        # The units warm up in initialize, on this (the main) thread; their
+        # live calls run on their one-worker executors.
+        main_tid = threading.get_native_id()
+
+        def executor_of(key):
+            return [t for tid, t in s["threads"].items() if tid != main_tid
+                    and any(key in n for n in t["kernel_names"])]
+        fe, word_threads = executor_of("filter_log_power"), \
+            executor_of("lpcnet_sampler")
+        mp["trace"] = dict(
+            bytes=size, kernels=s["kernels"], span_s=s["span_us"] / 1e6,
+            busy_share=s["busy_share"], kernel_s=s["kernel_us"] / 1e6,
+            top=[(n[:60], c, us / 1e3) for n, (c, us) in s["by_name"].items()],
+            threads_with_ops=sum(t["cpu_ops"] > 0
+                                 for t in s["threads"].values()),
+            warm_up_kernels=s["threads"].get(main_tid, {}).get("kernels", 0),
+            kernels_per_packet_call=(fe[0]["kernels"] / mp["packet_calls"]
+                                     if len(fe) == 1 else None),
+            kernels_per_word=(word_threads[0]["kernels"] / mp["words"]
+                              if len(word_threads) == 1 else None))
+        t = mp["trace"]
+        print(f"session over ZMQ: {mp['packet_calls']} of {sent} packets "
+              f"ingested, words equal to the in-process replay's {same}; "
+              f"trace ({size / 1e6:.0f} MB): {s['kernels']} kernels "
+              f"over {t['span_s']:.1f} s, device busy {t['busy_share']:.2%} "
+              f"({t['kernel_s']:.2f} s of kernels); {t['threads_with_ops']} "
+              f"threads with CPU ops; kernels per packet call "
+              f"{t['kernels_per_packet_call']}, per word "
+              f"{t['kernels_per_word']}, {t['warm_up_kernels']} in the "
+              f"units' warm-ups; top by device time (name, count, ms): "
+              f"{t['top']}")
+        if s["kernels"] == 0 or len(fe) != 1 or len(word_threads) != 1:
+            raise AssertionError(f"the trace holds {s['kernels']} kernels, "
+                                 f"the front-end kernel on {len(fe)} "
+                                 f"executor thread(s), the sampler on "
+                                 f"{len(word_threads)}")
+        if mp["packet_calls"] != sent or not same:
+            raise AssertionError(f"over ZMQ: {mp['packet_calls']} of {sent} "
+                                 f"packets, words equal to the replay's "
+                                 f"{same}")
+    ph.run("session trace (the bunch-1 word path over ZMQ, the port's "
+           "amplifier publishing, under device_trace)",
+           session_trace)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2114,6 +2570,8 @@ def main(report_path=None) -> int:
                  "training_decoder_app": tp["apps"]["decoder_launches"]})
     runs.update({f"scoring_{k}": v["launches"]
                  for k, v in tp["scores"].items()})
+    runs.update({f"interop_{k}": v["launches"]
+                 for k, v in report["interop"].items()})
     kernels = []
     for name, (route, src, replaces) in meta.items():
         k = report["kernels"][name]

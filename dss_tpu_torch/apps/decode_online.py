@@ -1,7 +1,7 @@
 """Closed-loop speech neuroprosthesis on the port: the online entry point.
 
     python -m dss_tpu_torch.apps.decode_online CFG.ini [--run NAME]
-        [--overwrite] [--device cuda|cpu]
+        [--overwrite] [--device cuda|cpu] [--profile-dir DIR]
 
 Reads the INI schema of apps/decode_online.py (e.g.
 config/debug_settings.ini, which ships ``vocoder_backend = dsp`` and
@@ -28,13 +28,16 @@ LPC / wav log taps and ``latency_budget.json``.
 
 ``Neuroprosthesis.configure_source`` is the one place that names the
 ingest, so a caller can replay a session in-process (``PacketReplay``)
-through the same units.
+through the same units.  ``--profile-dir`` records the whole run as a
+``torch.profiler`` trace (utils/profiling.py: every thread's CPU ops and,
+on the card, every CUDA kernel) into that directory.
 """
 
 from __future__ import annotations
 
 import argparse
 import configparser
+import contextlib
 import glob
 import json
 import logging
@@ -81,6 +84,7 @@ from ..utils.channels import (
     motor_grid,
     speech_grid,
 )
+from ..utils.profiling import device_trace
 
 logger = logging.getLogger("dss_tpu_torch.decode_online")
 
@@ -356,6 +360,9 @@ def main(argv=None) -> None:
                         help="Overwrite the run folder if it exists.")
     parser.add_argument("--device", default=None,
                         help="Torch device (default: cuda).")
+    parser.add_argument("--profile-dir", default=None,
+                        help="Record a torch.profiler trace of the run into "
+                             "this directory (Chrome/TensorBoard trace).")
     args = parser.parse_args(argv)
     settings = build_settings(args.config, args.run, args.device)
     try:
@@ -370,7 +377,9 @@ def main(argv=None) -> None:
         handlers=[logging.FileHandler(
             os.path.join(settings.destination_dir, "log.run.txt"), "w+"),
             logging.StreamHandler(sys.stderr)])
-    ez.run_system(Neuroprosthesis(settings))
+    with device_trace(args.profile_dir, settings.device) \
+            if args.profile_dir else contextlib.nullcontext():
+        ez.run_system(Neuroprosthesis(settings))
 
 
 if __name__ == "__main__":

@@ -27,9 +27,11 @@ __device__ __forceinline__ int mulaw_encode(float x) {
   return (int)fminf(fmaxf(v, 0.f), (float)(kLevels - 1));
 }
 
+// The level in double precision, rounded once: the float32 nearest the exact value, which
+// is vocoder/mulaw.py's table (powf put some levels a unit in the last place off it).
 __device__ __forceinline__ float mulaw_decode(int idx) {
-  const float y = (float)idx / (float)(kLevels - 1) * 2.f - 1.f;
-  return sgn(y) * (powf(1.f + kMu, fabsf(y)) - 1.f) / kMu;
+  const double y = (double)idx / (double)(kLevels - 1) * 2.0 - 1.0;
+  return (float)(copysign(pow(1.0 + (double)kMu, fabs(y)) - 1.0, y) / (double)kMu);
 }
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }

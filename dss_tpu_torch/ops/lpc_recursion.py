@@ -22,8 +22,8 @@ runs a batch in one launch.
 Kernel and plain version round every operation once, in the same order: the
 16 products summed as the pairwise tree ((p0+p1)+(p2+p3))+..., the mu-law
 scale as a product with the float32 reciprocal of log1p(255), and
-``mulaw_decode`` as a 256-entry table computed by torch on the inputs'
-device.  So the two agree bit for bit on the card.  ``mulaw_encode``
+``mulaw_decode`` as the 256-entry table of vocoder/mulaw.py, passed to the
+kernel.  So the two agree bit for bit on the card.  ``mulaw_encode``
 (vocoder/mulaw.py) divides by log1p(255) instead, which may round y one
 unit apart; an index can differ only where y sits on a level's edge.
 
@@ -62,8 +62,8 @@ _tables: Dict[str, torch.Tensor] = {}
 
 
 def decode_table(device) -> torch.Tensor:
-    """``mulaw_decode`` of the 256 levels, computed by torch on ``device``
-    (once per device)."""
+    """``mulaw_decode`` of the 256 levels on ``device`` (once per
+    device)."""
     key = str(device)
     if key not in _tables:
         _tables[key] = mulaw_decode(

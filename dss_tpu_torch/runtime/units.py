@@ -1,7 +1,8 @@
 """Streaming graph units of the online closed loop (counterpart of
 dss_tpu/runtime/units.py).
 
-* ``ZMQConnector``        — BCI2000 GenericSignal ZMQ SUB ingest;
+* ``ZMQConnector``        — BCI2000 GenericSignal ZMQ SUB ingest (its
+  packets: ``interpret_bci2000_packet``; ``pack_packet`` writes them);
 * ``PacketReplay``        — in-process replay of a recorded session;
 * ``FusedFrontendVad``    — packet -> front end -> nVAD -> segments, one
   device->host read per packet;
@@ -83,6 +84,16 @@ def interpret_bci2000_packet(data: bytes) -> np.ndarray:
     _d, _s, _t, ch, sa = BCI2000_HEADER.unpack(data[:BCI2000_HEADER.size])
     payload = np.frombuffer(data[BCI2000_HEADER.size:], np.float32)
     return payload.reshape(ch, sa).T.astype(np.float64, order="C")
+
+
+def pack_packet(data: np.ndarray) -> bytes:
+    """float32 [samples, channels] -> GenericSignal packet, the layout
+    ``interpret_bci2000_packet`` reads: header ``=BBB HH`` (4, 1, 2,
+    channels, samples), then the values as float32, channel-major."""
+    data = np.asarray(data, np.float32)
+    n_samples, n_channels = data.shape
+    return BCI2000_HEADER.pack(4, 1, 2, n_channels, n_samples) + \
+        np.ascontiguousarray(data.T).tobytes()
 
 
 # region Sources

@@ -639,3 +639,130 @@ def test_vocoder_teacher_forced_step_on_the_card_matches_the_cpu(dev):
         torch.testing.assert_close(out["cuda"][1][k], want, rtol=1e-4,
                                    atol=1e-4 * float(want.abs().max()),
                                    msg=k)
+
+
+def _imported_inputs(dev, frames, seed=0):
+    """A released-width imported checkpoint (tests/torch_xiph.py through
+    ``params_from_datasets``) on the card and sampler inputs from its own
+    frame net: the pitch table and same-padded convs over the call."""
+    from torch_xiph import xiph_datasets
+
+    from dss_tpu_torch.vocoder.interop import params_from_datasets
+    params, model = params_from_datasets(xiph_datasets(seed))
+    params = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.randn((1, frames, 20), generator=g) * 0.3
+    feats[..., 0] -= 4.0
+    feats = feats.to(dev)
+    cond = model.condition(params, feats)
+    lpc, _ = lpc_from_bands(bands_from_cepstrum(feats[..., :18]))
+    state = tnet.net_vocoder_init(model, 1, device=dev)
+    return (model, params, tnet.sampler_weights_for(model, params),
+            (state.h_a, state.h_b, state.sig_mem, state.exc_idx),
+            cond.transpose(0, 1).contiguous(),
+            lpc.transpose(0, 1).contiguous())
+
+
+def test_imported_checkpoint_greedy_through_the_sampler_kernel(dev):
+    """An imported xiph-shaped checkpoint at the released widths (dense
+    GRU-A 384, GRU-B 16, the MDense inner biases, the pitch-embedding frame
+    net) greedy through the kernel at S = 1 over two frames: GRU-A's 216
+    tiles do not stay resident, and excitations are identical to the plain
+    version's, samples and state within 1e-5, one launch counted."""
+    model, _, w, carry, cond, lpc = _imported_inputs(dev, 2)
+    assert model.gru_b_units == 16 and bool(w["ib_out"].abs().max() > 0)
+    plan = kernel_plan(w, 1, cond.shape[2], lpc.shape[2])
+    assert not plan["gru_a_tiles_resident"]
+    temp = -torch.ones(cond.shape[:2], device=dev)
+    before = sampler_frames.launches
+    kc, ks = sampler_frames(w, carry, cond, lpc, temp, None)
+    pc, ps = sampler_frames_plain(w, carry, cond, lpc, temp, None)
+    torch.cuda.synchronize()
+    assert sampler_frames.launches == before + 1
+    assert torch.equal(kc[3], pc[3])
+    torch.testing.assert_close(ks, ps, atol=1e-5, rtol=0)
+    for a, b in zip(kc[:3], pc[:3]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_reimported_b8_export_equals_the_direct_load_on_the_kernel(dev):
+    """weights/vocoder_speech_b8.npz exported to the Keras layout's
+    datasets and re-imported gives back every array bit for bit; greedy
+    through the kernel at S = 8 over two frames, the re-imported weights
+    give the direct load's samples exactly, and the plain version's within
+    1e-5 with identical excitations."""
+    from dss_tpu_torch.vocoder.interop import datasets_from_params, \
+        native_params_from_datasets
+    with np.load(REPO / "weights" / "vocoder_speech_b8.npz") as z:
+        direct = {k: z[k] for k in z.files}
+    back, model = native_params_from_datasets(datasets_from_params(direct))
+    assert set(back) == set(direct) and model.bunch == 8
+    for k in direct:
+        assert back[k].dtype == direct[k].dtype
+        np.testing.assert_array_equal(back[k], direct[k], err_msg=k)
+    w_direct, carry, cond, lpc, _ = _flagship_inputs(
+        dev, 2, name="vocoder_speech_b8.npz")
+    w_back = tnet.sampler_weights_for(model, _load_params(back, dev))
+    temp = -torch.ones(cond.shape[:2], device=dev)
+    dc, ds = sampler_frames_bunched(w_direct, carry, cond, lpc, temp, None)
+    bc, bs = sampler_frames_bunched(w_back, carry, cond, lpc, temp, None)
+    pc, ps = sampler_frames_bunched_plain(w_back, carry, cond, lpc, temp,
+                                          None)
+    torch.cuda.synchronize()
+    assert torch.equal(bs, ds) and torch.equal(bc[3], dc[3])
+    assert torch.equal(bc[3], pc[3])
+    torch.testing.assert_close(bs, ps, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("bunch", [1, 8])
+def test_sampler_kernel_levels_are_the_exact_mu_law_levels(dev, bunch):
+    """With every LPC tap 0 the prediction is 0, so each sample is the
+    mu-law level of its excitation.  Under noise that spreads the
+    excitations over all 256 levels (50 frames), the kernel's samples at
+    S = 1 and S = 8 are, bit for bit, float32 roundings of the exact
+    levels sign(y) (256^|y| - 1) / 255, as are the plain version's, and
+    ``mulaw_decode`` on the card gives those levels."""
+    y = np.arange(256, dtype=np.float64) / 255 * 2 - 1
+    levels = (np.sign(y) * np.expm1(np.abs(y) * np.log(256.0)) / 255
+              ).astype(np.float32)
+    from dss_tpu_torch.vocoder.mulaw import mulaw_decode
+    np.testing.assert_array_equal(
+        mulaw_decode(torch.arange(256, device=dev)).cpu().numpy(), levels)
+    name = "vocoder_speech.npz" if bunch == 1 else \
+        f"vocoder_speech_b{bunch}.npz"
+    w, carry, cond, lpc, _ = _flagship_inputs(dev, 50, name=name)
+    lpc = torch.zeros_like(lpc)
+    temp = torch.ones(cond.shape[:2], device=dev)
+    noise = 100.0 * torch.randn(
+        (50, 160, 1, 256), generator=torch.Generator().manual_seed(3)).to(dev)
+    kernel, plain = (sampler_frames, sampler_frames_plain) if bunch == 1 \
+        else (sampler_frames_bunched, sampler_frames_bunched_plain)
+    _, ks = kernel(w, carry, cond, lpc, temp, noise)
+    _, ps = plain(w, carry, cond, lpc, temp, noise)
+    ks, ps = ks[0].cpu().numpy(), ps[0].cpu().numpy()
+    seen = np.abs(ks[:, None] - levels[None]).argmin(1)
+    assert len(set(seen.tolist())) == 256
+    np.testing.assert_array_equal(ks, levels[seen])
+    np.testing.assert_array_equal(ps, ks)
+
+
+def test_contamination_surrogates_on_the_card_match_numpy(dev):
+    """64 surrogates of a 12 s, 32-channel contaminated day on the card:
+    the first eight within rtol 1e-4 of the numpy plain version (the
+    measure of the rolled audio spectrogram), all of them within rtol
+    1e-4 of the same batched path on the CPU."""
+    from dss_tpu_torch.eval import contamination as tc
+    rng = np.random.default_rng(5)
+    T = 12000
+    env = (np.sin(2 * np.pi * np.arange(T) / 4000) > 0).astype(float)
+    audio = rng.normal(size=T) * (0.1 + env)
+    ecog = rng.normal(size=(T, 32))
+    ecog[:, 3] += 5.0 * audio
+    a, b = tc.day_spectrograms(ecog, audio, 1000)
+    got = tc.surrogate_measures(a, b, 25, 64, device=dev)
+    cpu = tc.surrogate_measures(a, b, 25, 64, device="cpu")
+    np.testing.assert_allclose(got, cpu, rtol=1e-4)
+    for s, g in zip(tc.surrogate_shifts(len(a), 25, 64)[:8], got[:8]):
+        want, _ = tc.lagged_correlation_measure(np.roll(a, int(s), axis=0),
+                                                b, 25)
+        np.testing.assert_allclose(g, want, rtol=1e-4)

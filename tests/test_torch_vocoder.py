@@ -68,6 +68,27 @@ def test_mulaw_matches_jax(rng):
                                np.asarray(jmu.mulaw_decode(idx)), atol=1e-6)
 
 
+
+def test_mulaw_levels_are_the_nearest_float32_values():
+    """Each of ``mulaw_decode``'s 256 levels is the float32 nearest the
+    exact sign(y) (256^|y| - 1) / 255, and none lies within 1e-12
+    (relative) of a rounding tie, so the sampler kernel's level, computed in
+    double precision and rounded once, is the same float; a shaped and
+    batched index gives the same levels."""
+    y = np.arange(256, dtype=np.float64) / 255 * 2 - 1
+    exact = np.sign(y) * np.expm1(np.abs(y) * np.log(256.0)) / 255
+    got = tmu.mulaw_decode(torch.arange(256)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, exact.astype(np.float32))
+    up = np.nextafter(got, np.float32(np.inf)).astype(np.float64)
+    down = np.nextafter(got, np.float32(-np.inf)).astype(np.float64)
+    tie = np.minimum(np.abs(exact - (got + up) / 2),
+                     np.abs(exact - (got + down) / 2))
+    assert np.all(tie > 1e-12 * np.abs(exact))
+    idx = torch.tensor([[0, 255], [127, 128]])
+    np.testing.assert_array_equal(tmu.mulaw_decode(idx).numpy(),
+                                  got[idx.numpy()])
+
 def test_lpc_from_random_cepstra_matches_jax(rng):
     """bands_from_cepstrum and lpc_from_bands (lag-windowed Levinson) on
     random cepstra, batched.  rtol 1e-4 / atol 1e-4: f32 irfft and a
