@@ -130,6 +130,26 @@
    packet call and a word (by launching thread); it fails without CUDA
    kernel events or without the front-end kernel and the sampler in the
    trace.
+   Then the scale-out slice at world 1 (phase "scale-out"): make_mesh(1)
+   on a world-1 NCCL group (one all-reduce); ShardedFusedDecoderVocoder at
+   8 streams (the deployed decoder, 64 electrodes; the live slot plus 7
+   segments of other lengths cut from the session's bursts) in the word
+   path's graph on the session replayed as fast as the graph takes it,
+   with vocoder_speech.npz (K2 at B = 8) and vocoder_speech_b8.npz (K3 at
+   B = 8), counts zeroed before each run and read after it; then the three
+   words again through a chunked and a single-shot unit: every slot's
+   audio equal bit for bit, T_i x 160 samples, the head (decode + 8 first
+   chunks + one read) and each tail chunk timed, the sampler's launches
+   and device time and the card's busy share from ``device_trace``; K2 on
+   one 50-frame block at B = 1,
+   8, 16, the card's cluster limit (kernel_plan's max_active_clusters) and
+   one past it, with the real-time streams B x 0.5 s / block time; K2
+   greedy at the largest B and K3 b8 at B = 8 against the plain version
+   (2 frames, atol 1e-5 up to any parting, which must follow a straddled
+   mu-law edge); dss_tpu_torch.apps.serve_multichip at 8 and 16 streams
+   (its JSON line); the data-parallel decoder, nVAD and vocoder steps at
+   world 1 (deployed and shipped widths) against the plain single-card
+   steps' losses (rtol 1e-6).
 4. Prints the kernels' line, latencies, the card's name and power limit,
    and last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
    without that line.  ``--report PATH`` also writes every measurement
@@ -1117,12 +1137,18 @@ def main(report_path=None) -> int:
             ZMQConnector, ZMQConnectorSettings
 
         class Sink(ez.Unit):
+            RAW = ez.InputStream(ez.ClosedLoopMessage)
             AUDIO = ez.InputStream(ez.ClosedLoopMessage)
             WORD = ez.InputStream(ez.TimeSeriesMessage)
             LPC = ez.InputStream(ez.TimeSeriesMessage)
 
             def initialize(self):
                 self.first_audio_ms, self.words, self.lpc = [], [], []
+                self.packets = 0
+
+            @ez.subscriber(RAW)
+            async def on_raw(self, msg):
+                self.packets += 1
 
             @ez.subscriber(AUDIO)
             async def on_audio(self, msg):
@@ -1185,6 +1211,7 @@ def main(report_path=None) -> int:
 
                 def network(self):
                     return ((self.SOURCE.OUTPUT, self.FRONTEND.INPUT),
+                            (self.SOURCE.OUTPUT, self.SINK.RAW),
                             (self.FRONTEND.OUTPUT, self.WORDS.INPUT),
                             (self.WORDS.OUTPUT, self.SINK.AUDIO),
                             (self.WORDS.WORD, self.SINK.WORD),
@@ -1226,6 +1253,7 @@ def main(report_path=None) -> int:
             packet_ms_p50=pct(system.FRONTEND.step_ms, 50),
             packet_ms_p95=pct(system.FRONTEND.step_ms, 95),
             packet_calls=len(system.FRONTEND.step_ms),
+            packets_ingested=sink.packets,
             word_head_ms=system.WORDS.word_ms,
             ingest_to_first_audio_ms=sink.first_audio_ms)
         print(f"main path ({weights_name}): {len(sink.words)} word(s) of "
@@ -2493,7 +2521,7 @@ def main(report_path=None) -> int:
             kernels_per_word=(word_threads[0]["kernels"] / mp["words"]
                               if len(word_threads) == 1 else None))
         t = mp["trace"]
-        print(f"session over ZMQ: {mp['packet_calls']} of {sent} packets "
+        print(f"session over ZMQ: {mp['packets_ingested']} of {sent} packets "
               f"ingested, words equal to the in-process replay's {same}; "
               f"trace ({size / 1e6:.0f} MB): {s['kernels']} kernels "
               f"over {t['span_s']:.1f} s, device busy {t['busy_share']:.2%} "
@@ -2508,13 +2536,365 @@ def main(report_path=None) -> int:
                                  f"the front-end kernel on {len(fe)} "
                                  f"executor thread(s), the sampler on "
                                  f"{len(word_threads)}")
-        if mp["packet_calls"] != sent or not same:
-            raise AssertionError(f"over ZMQ: {mp['packet_calls']} of {sent} "
+        # Packets, not device calls: under a backlog the front end runs
+        # queued packets as one call (its coalescing), so a session of 400
+        # packets may take 399 calls.
+        if mp["packets_ingested"] != sent or not same:
+            raise AssertionError(f"over ZMQ: {mp['packets_ingested']} of "
+                                 f"{sent} "
                                  f"packets, words equal to the replay's "
                                  f"{same}")
     ph.run("session trace (the bunch-1 word path over ZMQ, the port's "
            "amplifier publishing, under device_trace)",
            session_trace)
+
+    # ---- scale-out: many streams a card ----------------------------------------
+    def scale_out():
+        """The scale-out slice at world 1 on the card: (a) the mesh over a
+        world-1 NCCL group; (b) ShardedFusedDecoderVocoder at 8 streams in
+        the word-path graph on the session (the live slot plus 7 segments
+        cut from the session's words), then the three words again through
+        a chunked and a single-shot unit, every slot bit for bit, timed and
+        traced; (c) K2 on one 50-frame block at B = 1, 8, 16 and the
+        card's cluster limit and one past it, K2 at the largest B and K3 b8
+        at B = 8 greedy against the plain version; (d) serve_multichip at 8
+        and 16 streams; (e) the data-parallel training steps against the
+        plain single-card steps."""
+        import torch.distributed as dist
+
+        from dss_tpu_torch import runtime as ez
+        from dss_tpu_torch.apps import serve_multichip
+        from dss_tpu_torch.apps.decode_online import feature_transforms
+        from dss_tpu_torch.models.decoder import \
+            BidirectionalSpeechSynthesisModel
+        from dss_tpu_torch.models.lstm import seeded_init
+        from dss_tpu_torch.models.vad import UnidirectionalVoiceActivityDetector
+        from dss_tpu_torch.ops.hga import HighGammaExtractor
+        from dss_tpu_torch.parallel import make_mesh, \
+            sharded_decoder_train_step, sharded_vad_train_step, \
+            sharded_vocoder_train_step
+        from dss_tpu_torch.parallel.mesh import axis
+        from dss_tpu_torch.parallel.shard import decoder_trainer, \
+            vad_trainer
+        from dss_tpu_torch.runtime.units import FusedFrontendVad, \
+            FusedFrontendVadSettings, PacketReplay, PacketReplaySettings, \
+            ShardedFusedDecoderVocoder, ShardedFusedDecoderVocoderSettings
+        from dss_tpu_torch.train.trainer_decoder import DecoderTrainer
+        from dss_tpu_torch.train.trainer_vad import VadTrainer
+        from dss_tpu_torch.train.trainer_vocoder import VocoderTrainer
+
+        so = report["scale_out"] = {}
+        t_phase = time.perf_counter()
+        try:
+            # (a) the mesh: a world-1 NCCL group started by make_mesh.
+            mesh = make_mesh(1)
+            size, _, group = axis(mesh, "data")
+            one = torch.ones(4, device=dev)
+            dist.all_reduce(one, group=group)
+            torch.cuda.synchronize()
+            so["mesh"] = dict(shape=list(mesh.shape),
+                              backend=dist.get_backend(),
+                              all_reduce_ok=bool((one == 1).all()))
+            print(f"scale-out mesh: {so['mesh']}")
+            if mesh.shape != (1, 1) or so["mesh"]["backend"] != "nccl" \
+                    or not so["mesh"]["all_reduce_ok"]:
+                raise AssertionError(f"mesh {so['mesh']}")
+
+            # (b) the sharded unit.  Background slots: 7 segments of other
+            # lengths cut from the session's three bursts (features at
+            # 100 Hz; the bursts span frames 200-350, 700-850, 1200-1350).
+            pre, post, nb = feature_transforms(None)
+            ex = HighGammaExtractor(fs=1000, nb_electrodes=nb,
+                                    pre_transforms=pre, post_transforms=post,
+                                    device=dev)
+            feats = ex.extract_features(session())
+            cuts = [(180, 120), (690, 170), (1190, 150), (195, 200),
+                    (705, 140), (1210, 230), (185, 160)]
+            background = [np.ascontiguousarray(feats[a:a + n])
+                          for a, n in cuts]
+
+            def unit(weights, chunked):
+                u = ShardedFusedDecoderVocoder()
+                u.apply_settings(ShardedFusedDecoderVocoderSettings(
+                    path_to_model_weights=None,
+                    model=BidirectionalSpeechSynthesisModel,
+                    params=dict(nb_layer=2, nb_hidden_units=100,
+                                nb_electrodes=nb),
+                    vocoder_weights=str(ROOT / "weights" / weights),
+                    streams=8, slot_feeder=lambda n, t: background,
+                    chunk_emission=chunked))
+                return u
+
+            class Sink(ez.Unit):
+                SEGMENT = ez.InputStream(ez.TimeSeriesMessage)
+                WORD = ez.InputStream(ez.TimeSeriesMessage)
+
+                def initialize(self):
+                    self.segments, self.words = [], []
+
+                @ez.subscriber(SEGMENT)
+                async def on_segment(self, msg):
+                    self.segments.append(np.asarray(msg.data, np.float32))
+
+                @ez.subscriber(WORD)
+                async def on_word(self, msg):
+                    self.words.append(np.asarray(msg.data))
+
+            with tempfile.TemporaryDirectory() as tmp:
+                vad_path = Path(tmp) / "vad_threshold.npz"
+                np.savez(vad_path, **threshold_vad())
+                for key, weights, kernel in (
+                        ("scaleout_b1", "vocoder_speech.npz",
+                         "lpcnet_sampler_b1"),
+                        ("scaleout_b8", "vocoder_speech_b8.npz",
+                         "lpcnet_sampler_bunched")):
+                    class System(ez.System):
+                        SOURCE = PacketReplay()
+                        FRONTEND = FusedFrontendVad()
+                        WORDS = ShardedFusedDecoderVocoder()
+                        SINK = Sink()
+
+                        def configure(self):
+                            self.SOURCE.apply_settings(PacketReplaySettings(
+                                data=session(), fs=1000))
+                            self.FRONTEND.apply_settings(
+                                FusedFrontendVadSettings(
+                                    nb_features=nb, fs=1000,
+                                    buffer_size=2000, context_frames=50,
+                                    pre_transforms=pre,
+                                    post_transforms=post,
+                                    vad_architecture=(
+                                        UnidirectionalVoiceActivityDetector),
+                                    vad_weights_path=vad_path,
+                                    vad_parameters=dict(
+                                        nb_layer=2, nb_hidden_units=150,
+                                        nb_electrodes=nb)))
+                            self.WORDS.apply_settings(
+                                unit(weights, True).SETTINGS)
+
+                        def network(self):
+                            return ((self.SOURCE.OUTPUT, self.FRONTEND.INPUT),
+                                    (self.FRONTEND.OUTPUT, self.WORDS.INPUT),
+                                    (self.FRONTEND.OUTPUT, self.SINK.SEGMENT),
+                                    (self.WORDS.WORD, self.SINK.WORD))
+
+                    system = System()
+                    zero_counts()
+                    t0 = time.perf_counter()
+                    ez.run_system(system)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = read_counts()
+                    sink = system.SINK
+                    rec = so[key] = dict(
+                        vocoder_weights=weights, launches=launches,
+                        graph_wall_s=wall, words=len(sink.words),
+                        live_frames=[len(x) for x in sink.segments],
+                        graph_word_head_ms=system.WORDS.word_ms)
+                    print(f"scale-out graph ({weights}, 8 streams): "
+                          f"{len(sink.words)} words of "
+                          f"{rec['live_frames']} frames in {wall:.1f} s, "
+                          f"launches {launches}")
+                    if len(sink.words) != 3 or launches[kernel] <= 0 or \
+                            launches["filter_log_power"] <= 0:
+                        raise AssertionError(f"{key}: {rec}")
+                    if any(len(w) != len(x) * 160 for w, x in
+                           zip(sink.words, sink.segments)):
+                        raise AssertionError(f"{key}: word lengths")
+
+                    # The three words again, chunked and single-shot on
+                    # fresh units: every slot bit for bit; the chunked
+                    # words timed and traced.
+                    chunked, single = unit(weights, True), \
+                        unit(weights, False)
+                    chunked.initialize()
+                    single.initialize()
+                    per_word = []
+                    for seg in sink.segments:
+                        before = read_counts()[kernel]
+                        with tempfile.TemporaryDirectory() as tdir:
+                            with device_trace(tdir):
+                                t0 = time.perf_counter()
+                                lpc_c, a0, pending, Ts = \
+                                    chunked._decode_head(seg)
+                                head_ms = (time.perf_counter() - t0) * 1e3
+                                parts, tail_ms = [a0], []
+                                for k, f in enumerate(pending, start=1):
+                                    t0 = time.perf_counter()
+                                    parts.append(
+                                        chunked._read_chunk(f, k, Ts))
+                                    tail_ms.append(
+                                        (time.perf_counter() - t0) * 1e3)
+                            (path,) = trace_files(tdir)
+                            traced = trace_summary(path, top=10 ** 6)
+                        launched = read_counts()[kernel] - before
+                        sampler = [v for n, v in traced["by_name"].items()
+                                   if "lpcnet_sampler" in n]
+                        lpc_s, a0_s = single._decode_and_vocode(seg)
+                        bg = {i: np.concatenate(p)
+                              for i, p in chunked._bg_parts.items()}
+                        same = np.array_equal(lpc_c, lpc_s) and \
+                            np.array_equal(np.concatenate(parts), a0_s) \
+                            and all(np.array_equal(bg[i],
+                                                   single.slot_audio[i])
+                                    for i in range(1, 8))
+                        sized = len(a0_s) == Ts[0] * 160 and all(
+                            len(bg[i]) == Ts[i] * 160 for i in range(1, 8))
+                        per_word.append(dict(
+                            slot_frames=Ts, head_ms=head_ms,
+                            tail_chunk_ms=tail_ms,
+                            sampler_launches=launched,
+                            sampler_trace_kernels=sum(c for c, _ in sampler),
+                            sampler_device_ms=sum(us for _, us in sampler)
+                            / 1e3, busy_share=traced["busy_share"],
+                            chunked_equals_single=same,
+                            slot_lengths_ok=sized))
+                        print(f"  word of {Ts[0]} frames, slots {Ts}: head "
+                              f"{head_ms:.1f} ms (decode + 8 first chunks "
+                              f"+ one read), tail chunks "
+                              f"{[round(t, 1) for t in tail_ms]} ms; "
+                              f"sampler {per_word[-1]['sampler_launches']} "
+                              f"launches, "
+                              f"{per_word[-1]['sampler_device_ms']:.1f} ms "
+                              f"device time (device_trace; the card busy "
+                              f"{traced['busy_share']:.1%} of the word); "
+                              f"chunked == single-shot for "
+                              f"all 8 slots: {same}; T_i x 160: {sized}")
+                        if not same or not sized:
+                            raise AssertionError(f"{key}: word {Ts}")
+                    rec["words_detail"] = per_word
+                    for u in (chunked, single):
+                        u.shutdown()
+
+            # (c) streams a card: K2 at B = 1, 8, 16, the cluster limit
+            # and one past it; the sampler runs a cluster of 8 blocks a
+            # stream, so past the limit a block runs as two waves.
+            plan = kernel_plan(w, 1, 128, 16)
+            edge = plan["max_active_clusters"]
+            sweep = {}
+            for B in sorted({1, 8, 16, edge, edge + 1}):
+                carry, cond, lpc, temp = inputs(50, 7, batch=B)
+                noise = tnet.gumbel_noise(0, 0, 50, B, dev)
+                ms = cuda_ms(lambda: sampler_frames(w, carry, cond, lpc,
+                                                    temp, noise), 3,
+                             warmup=1)
+                _, sig = sampler_frames(w, carry, cond, lpc, temp, noise)
+                bound, bound_by, _, _ = sampler_bound(
+                    model, params, w, 1, carry, cond, lpc, temp, noise, sig)
+                sweep[B] = dict(ms=ms, realtime_streams=B * 500.0 / ms,
+                                bound_ms=bound, bound_by=bound_by)
+                print(f"  K2 at B = {B}: {ms:.2f} ms a 50-frame block, "
+                      f"{B * 500.0 / ms:.1f} real-time streams; bound "
+                      f"{bound:.4f} ms ({bound_by})")
+            so["k2_sweep"] = dict(max_active_clusters=edge, plan=plan,
+                                  by_batch=sweep)
+
+            def greedy(name, run, plain, wS, model_, params_, S, B):
+                carry, cond, lpc, temp = inputs(2, 9, model_, params_, B)
+                temp = -torch.ones_like(temp)
+                kc, ks = run(wS, carry, cond, lpc, temp, None)
+                pc, ps = plain(wS, carry, cond, lpc, temp, None)
+                torch.cuda.synchronize()
+                worst, ok = 0.0, True
+                for b in range(B):
+                    part = parting(ks[b].double().cpu().numpy(),
+                                   ps[b].double().cpu().numpy(),
+                                   carry[2][b].double().cpu().numpy(),
+                                   lpc[:, b].double().cpu().numpy(), 1e-5)
+                    worst = max(worst, part["max_before"])
+                    ok &= part["max_before"] <= 1e-5 and (
+                        part["straddle"] is not None
+                        if part["first"] is not None
+                        else bool(torch.equal(kc[3][b], pc[3][b])))
+                so[f"{name}_greedy"] = dict(batch=B, max_abs_err=worst,
+                                            ok=ok)
+                print(f"  {name} greedy at B = {B}, 2 frames: max err "
+                      f"{worst:.3g} before any parting; held: {ok}")
+                if not ok:
+                    raise AssertionError(f"{name} greedy at B = {B}")
+            greedy("k2", sampler_frames, sampler_frames_plain, w, model,
+                   params, 1, edge + 1)
+            m8, p8, w8 = bunched[8]
+            greedy("k3_b8", sampler_frames_bunched,
+                   sampler_frames_bunched_plain, w8, m8, p8, 8, 8)
+
+            # (d) the serving app at world 1, also at the cluster limit.
+            for spd in sorted({8, 16, edge}):
+                zero_counts()
+                line = serve_multichip.main([
+                    "--streams-per-device", str(spd), "--frames", "50",
+                    "--steps", "3", "--weights",
+                    str(ROOT / "weights" / "vocoder_speech.npz")])
+                launches = read_counts()
+                so[f"serve_multichip_{spd}"] = dict(line=line,
+                                                    launches=launches)
+                print(f"  serve_multichip --streams-per-device {spd}: "
+                      f"{json.dumps(line)}; launches {launches}")
+                if line["pcm_shape"] != [spd, 8000] or \
+                        launches["lpcnet_sampler_b1"] <= 0:
+                    raise AssertionError(f"serve_multichip {spd}: {line}")
+
+            # (e) the data-parallel steps at world 1 against the plain
+            # single-card steps on the same data.
+            rng = np.random.default_rng(21)
+            lengths = np.array([300, 212, 257, 181])
+            x = rng.normal(size=(4, 300, nb)).astype(np.float32)
+            y = rng.normal(size=(4, 300, 20)).astype(np.float32)
+            mask = (np.arange(300)[None] < lengths[:, None]).astype(
+                np.float32)
+            labels = (rng.random((4, 300)) > 0.5).astype(np.float32)
+            dp = {}
+
+            def timed(fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = float(fn())
+                return out, (time.perf_counter() - t0) * 1e3
+
+            model_d = BidirectionalSpeechSynthesisModel(2, 100, nb)
+            seeded_init(model_d, 0)
+            plain_d, ms_p = timed(lambda: DecoderTrainer(
+                model_d, device=dev).train_step(x, y, mask))
+            sharded_d, ms_s = timed(lambda: sharded_decoder_train_step(
+                mesh, x, y, mask, 100, trainer=decoder_trainer(mesh, nb)))
+            dp["decoder"] = dict(loss=sharded_d, plain_loss=plain_d,
+                                 ms=ms_s, plain_ms=ms_p)
+            model_v = UnidirectionalVoiceActivityDetector(2, 150, nb)
+            seeded_init(model_v, 0)
+            plain_v, ms_p = timed(lambda: VadTrainer(
+                model_v, device=dev).tbptt_trial(x, labels, mask))
+            sharded_v, ms_s = timed(lambda: sharded_vad_train_step(
+                mesh, x, labels, mask, 150, trainer=vad_trainer(mesh, nb)))
+            dp["vad"] = dict(loss=sharded_v, plain_loss=plain_v, ms=ms_s,
+                             plain_ms=ms_p)
+            vf = (rng.normal(size=(8, 15, 20)) * 0.3).astype(np.float32)
+            vs = (rng.normal(size=(8, 2400)) * 0.05).astype(np.float32)
+            vts = []
+            for _ in range(2):
+                vt = VocoderTrainer(tnet.LPCNetModel(), device=dev, seed=3)
+                vt.init()
+                vts.append(vt)
+            plain_c, ms_p = timed(lambda: vts[0].train_step(vf, vs))
+            sharded_c, ms_s = timed(lambda: sharded_vocoder_train_step(
+                mesh, vts[1], vf, vs))
+            dp["vocoder"] = dict(loss=sharded_c, plain_loss=plain_c,
+                                 ms=ms_s, plain_ms=ms_p)
+            so["dp_training"] = dp
+            print(f"  data-parallel steps at world 1 (loss, plain loss, ms, "
+                  f"plain ms): {dp}")
+            for k, v in dp.items():
+                if not np.isfinite(v["loss"]) or \
+                        abs(v["loss"] - v["plain_loss"]) > \
+                        1e-6 * abs(v["plain_loss"]):
+                    raise AssertionError(f"DP {k} step: {v}")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            so["phase_s"] = time.perf_counter() - t_phase
+            print(f"scale-out phase: {so['phase_s']:.1f} s")
+    ph.run("scale-out (mesh, the sharded word unit at 8 streams, K2's "
+           "streams a card, serve_multichip, data-parallel steps)",
+           scale_out)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2572,6 +2952,9 @@ def main(report_path=None) -> int:
                  for k, v in tp["scores"].items()})
     runs.update({f"interop_{k}": v["launches"]
                  for k, v in report["interop"].items()})
+    so = report["scale_out"]
+    runs.update({k: v["launches"] for k, v in so.items()
+                 if k.startswith(("scaleout_", "serve_multichip_"))})
     kernels = []
     for name, (route, src, replaces) in meta.items():
         k = report["kernels"][name]
@@ -2587,6 +2970,12 @@ def main(report_path=None) -> int:
             kernels[-1].update(
                 cluster=k["plan"]["cluster"],
                 resident_bytes_per_block=k["plan"]["resident_bytes"])
+        if name == "lpcnet_sampler_b1":  # ms a 50-frame block by streams
+            sweep = so["k2_sweep"]
+            kernels[-1].update(
+                max_active_clusters=sweep["max_active_clusters"],
+                ms_by_streams={b: v["ms"] for b, v in
+                               sweep["by_batch"].items()})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -41,3 +42,16 @@ class BidirectionalSpeechSynthesisModel(nn.Module):
             state = self.create_new_initial_state(x.shape[0])
         y, state = run_lstm(self.lstm, x, state, mask, lengths)
         return self.regressor(y), state
+
+
+def hold_last_frame(pred: torch.Tensor, lengths: Sequence[int]
+                    ) -> torch.Tensor:
+    """pred [B, T, F] -> the same with each row's frames past its length
+    replaced by its last valid frame (the online unit's repeat-pad: a
+    vocoder never consumes padding)."""
+    T = pred.shape[1]
+    last = torch.as_tensor(np.asarray(lengths) - 1, dtype=torch.long,
+                           device=pred.device)
+    idx = torch.minimum(torch.arange(T, device=pred.device)[None],
+                        last[:, None])
+    return pred.gather(1, idx[..., None].expand_as(pred))

@@ -24,7 +24,7 @@ from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 LstmState = Tuple[torch.Tensor, torch.Tensor]  # (h, c): [L*D, B, H] each
 
 
-def run_lstm(lstm: nn.LSTM, x: torch.Tensor, state: Optional[LstmState],
+def run_lstm(lstm: nn.Module, x: torch.Tensor, state: Optional[LstmState],
              mask: Optional[torch.Tensor] = None,
              lengths: Optional[Sequence[int]] = None
              ) -> Tuple[torch.Tensor, LstmState]:
@@ -39,6 +39,10 @@ def run_lstm(lstm: nn.LSTM, x: torch.Tensor, state: Optional[LstmState],
     if lengths is None:
         lengths = mask.detach().to("cpu").sum(dim=1).round().long()
     lengths = torch.as_tensor(lengths, dtype=torch.int64).reshape(-1)
+    if not isinstance(lstm, nn.LSTM):
+        # A step-loop LSTM that masks itself (parallel/shard.py's
+        # gate-parallel one).
+        return lstm(x, state, lengths)
     T = x.shape[1]
     if bool((lengths == T).all()):
         return lstm(x, state)

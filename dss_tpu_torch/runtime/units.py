@@ -11,6 +11,9 @@ dss_tpu/runtime/units.py).
 * ``FusedDecoderVocoder`` — segment -> decoder -> vocoder -> int16 PCM,
   one device->host read per word (plus one per later audio chunk on the
   neural backend);
+* ``ShardedFusedDecoderVocoder`` — the word path for many streams: the
+  live segment is slot 0 of a serve batch split over the ranks of a
+  process group (one slot a rank, or many on one card);
 * ``RecurrentNeuralDecodingModel`` and ``DelayedLPCNetVocoder`` — the same
   as two units: segment -> features, features -> int16 PCM;
 * ``BinaryLogger``, ``VoiceActivityDetectionLogger``, ``DelayedWavLogger``
@@ -38,9 +41,11 @@ from typing import Any, AsyncGenerator, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.io.wavfile import write as _wavwrite
 
 from ..device import resolve_device
+from ..models.decoder import hold_last_frame
 from ..models.lstm import seeded_init
 from ..models.torch_port import load_checkpoint
 from ..ops.hga import HighGammaExtractor
@@ -284,9 +289,7 @@ def _decode_padded(model, data: np.ndarray, T: int, mult: int, device):
     mask = torch.zeros((1, Tp))
     mask[0, :T] = 1.0
     pred, _ = model(x.to(device), mask=mask)
-    feats = pred.clone()
-    feats[:, T:] = pred[:, T - 1:T]
-    return pred[:, :T], feats
+    return pred[:, :T], hold_last_frame(pred, [T])
 
 
 # region Fused packet path
@@ -806,6 +809,338 @@ class FusedDecoderVocoder(Unit):
                 out = _anonymize(msg, data=audio_k, fs=16000)
             yield self.OUTPUT, out
         word = np.concatenate(parts) if len(parts) > 1 else audio0
+        yield self.WORD, _anonymize(msg, data=word, fs=16000)
+# endregion
+
+
+# region Sharded word path
+_STOP, _WORD, _TAIL = 0, 1, 2  # the messages rank 0 sends its workers
+
+
+class ShardedFusedDecoderVocoderSettings(Settings):
+    """The word path for many streams (see the unit)."""
+
+    path_to_model_weights: Optional[str]
+    model: Any
+    params: Optional[dict]
+    vocoder_weights: Optional[str] = None  # None: a vocoder seeded with 0
+    length_multiple: int = 50  # segment padding bucket (masked; exact)
+    # Decoder segment lengths warmed at startup (2 * length_multiple too).
+    prewarm_frames: Tuple[int, ...] = ()
+    # Ranks of the process group to serve on (0 = all of them) and the
+    # serve batch (0 = one slot a rank; a multiple of the ranks).
+    n_devices: int = 0
+    streams: int = 0
+    # Segments for the slots other than the live one: a callable
+    # ``(n_background_slots, live_frames) -> iterable of [T_i, ch]``
+    # float32 arrays, each slot with its own length.  None replays the live
+    # segment into every slot.
+    slot_feeder: Optional[Any] = None
+    # 50-frame head and tail chunks, as FusedDecoderVocoder (single-shot
+    # when length_multiple is no multiple of 50).
+    chunk_emission: bool = True
+    quiet_sharpen: bool = True
+    device: Optional[str] = None  # None = cuda
+
+
+class ShardedFusedDecoderVocoder(Unit):
+    """The word path for many streams: each segment decodes and vocodes as
+    slot 0 of a serve batch, the live closed-loop stream (its LPC is
+    logged, its audio published); ``slot_feeder`` gives the other slots
+    segments of their own, and their audio of the last word is in
+    ``slot_audio``.  The surface is FusedDecoderVocoder's (INPUT, LPC,
+    OUTPUT, WORD), so the app's wiring takes it unchanged.
+
+    The slots split over the ranks of the process group, a contiguous block
+    a rank (parallel/shard.py's layout, on a mesh of "data" = the ranks):
+    a rank decodes its slots in one batched ``run_lstm`` call with their
+    host lengths, holds each slot's last valid frame over its padding, and
+    vocodes them through the sampler kernel at B = its slots, with the
+    vocoder state of its streams (noise keyed by global slot).  At world 1
+    every slot runs here, with no collective.  At world > 1 rank 0 runs the
+    graph and the other ranks ``run_worker``: rank 0 broadcasts each padded
+    batch and each tail chunk's frames and gathers the ranks' packed int16
+    audio; a stop message ends their loop at ``shutdown``.  On rank 0 the
+    unit's one-worker executor is the only thread that issues collectives.
+    """
+
+    SETTINGS: ShardedFusedDecoderVocoderSettings
+    INPUT = InputStream(TimeSeriesMessage)
+    LPC = OutputStream(TimeSeriesMessage)
+    OUTPUT = OutputStream(TimeSeriesMessage)
+    WORD = OutputStream(TimeSeriesMessage)
+
+    def initialize(self) -> None:
+        from ..parallel import make_mesh
+        from ..parallel.mesh import axis, mesh_device
+
+        s = self.SETTINGS
+        mesh = make_mesh(s.n_devices or None, model_parallel=1,
+                         device=resolve_device(s.device))
+        self._device = mesh_device(mesh)  # this rank's card, by index
+        self._world, coord, self._group = axis(mesh, "data")
+        self._rank = coord
+        self._root = dist.get_global_rank(self._group, 0)
+        streams = s.streams or self._world
+        if streams % self._world:
+            raise ValueError(f"streams={streams} must be a multiple of the "
+                             f"{self._world} ranks")
+        self._streams = streams
+        n = streams // self._world
+        self._slots = slice(coord * n, (coord + 1) * n)
+        self._model = _load_lstm(s.model, s.params, s.path_to_model_weights,
+                                 True, "regressor", self._device)
+        if s.vocoder_weights is not None:
+            self._voc_params = _load_params(s.vocoder_weights, self._device)
+            self._voc_model = LPCNetModel.from_params(self._voc_params)
+        else:
+            self._voc_model = LPCNetModel()
+            self._voc_params = self._voc_model.init(
+                torch.Generator().manual_seed(0), self._device)
+        self._sampler_w = sampler_weights_for(self._voc_model,
+                                              self._voc_params)
+        self._voc_state = self._fresh_vocoder_state()
+        self._chunk = COND_BLOCK
+        self._chunked = bool(s.chunk_emission) \
+            and s.length_multiple % COND_BLOCK == 0
+        self._header = torch.zeros(3 + streams, dtype=torch.long,
+                                   device=self._device)
+        self.slot_audio: dict = {}  # slot 1.. -> int16 audio of the last word
+        self.word_ms: List[float] = []  # segment in -> first audio read
+        if self._device.type == "cuda":
+            # Warm the decoder at every bucket (n - 1 valid frames: the
+            # packed path's cuDNN plans) and the vocoder on one chunk (the
+            # sampler's weight layout), on throwaway state.
+            E = self._model.nb_electrodes
+            for T in sorted({2 * s.length_multiple,
+                             *(s.prewarm_frames or ())}):
+                self._decode(torch.zeros((n, T, E), device=self._device),
+                             np.full(n, max(T - 1, 1)))
+            with torch.no_grad():
+                net_synthesize_frames(
+                    self._voc_model, self._voc_params,
+                    self._fresh_vocoder_state(),
+                    torch.zeros((n, self._chunk, 20), device=self._device),
+                    sampler_weights=self._sampler_w)[0].cpu()
+        self._executor = ThreadPoolExecutor(
+            max_workers=1, **(dict(initializer=torch.cuda.set_device,
+                                   initargs=(self._device,))
+                              if self._device.type == "cuda" else {}))
+
+    def _fresh_vocoder_state(self):
+        n = self._slots.stop - self._slots.start
+        return net_vocoder_init(self._voc_model, batch=n,
+                                device=self._device)._replace(
+            slot_lo=self._slots.start, slots=self._streams)
+
+    def shutdown(self) -> None:
+        if self._world > 1 and self._rank == 0:
+            self._executor.submit(self._tell, _STOP, 0, 0,
+                                  [0] * self._streams).result()
+        self._executor.shutdown(wait=True)
+
+    # -- every rank's part --------------------------------------------------
+    @torch.no_grad()
+    def _decode(self, x: torch.Tensor, lengths: np.ndarray) -> torch.Tensor:
+        pred, _ = self._model(x, lengths=lengths)
+        return pred
+
+    @torch.no_grad()
+    def _vocode(self, feats: torch.Tensor) -> torch.Tensor:
+        """This rank's slots of feats [n, L, 20] -> their int16 PCM as
+        packed f32 pairs [n, L * 80]; the vocoder state advances."""
+        pcm, self._voc_state = net_synthesize_frames(
+            self._voc_model, self._voc_params, self._voc_state, feats,
+            quiet_sharpen=self.SETTINGS.quiet_sharpen,
+            sampler_weights=self._sampler_w)
+        return torch.clamp(pcm * 32767.0, -32768, 32767).to(
+            torch.int16).view(torch.float32)
+
+    def _local(self, cmd: int, arg: int, flag: int, lengths: np.ndarray,
+               x: Optional[torch.Tensor]):
+        """(this rank's decoded features or None, its slots' packed audio)
+        for one message: a word (x [streams, Tp, E], ``flag``: the head
+        chunk only) or the tail chunk of frames ``arg ..``."""
+        if cmd == _WORD:
+            mine = lengths[self._slots]
+            pred = self._decode(x[self._slots], mine)
+            self._feats = hold_last_frame(pred, mine)
+            n = self._chunk if flag else arg
+            return pred, self._vocode(self._feats[:, :n])
+        return None, self._vocode(self._feats[:, arg:arg + self._chunk])
+
+    def _tell(self, cmd: int, arg: int, flag: int, lengths) -> None:
+        if self._world > 1:
+            self._header.copy_(torch.as_tensor([cmd, arg, flag, *lengths]))
+            dist.broadcast(self._header, self._root, group=self._group)
+
+    def _gather(self, bits: torch.Tensor) -> Optional[torch.Tensor]:
+        if self._world == 1:
+            return bits
+        parts = ([torch.empty_like(bits) for _ in range(self._world)]
+                 if self._rank == 0 else None)
+        dist.gather(bits, parts, dst=self._root, group=self._group)
+        return torch.cat(parts) if parts is not None else None
+
+    def run_worker(self) -> None:
+        """A rank > 0's loop: run its slots of each word and tail chunk
+        rank 0 sends, until the stop message."""
+        if self._rank == 0:
+            raise RuntimeError("rank 0 runs the graph, not a worker loop")
+        E = self._model.nb_electrodes
+        while True:
+            dist.broadcast(self._header, self._root, group=self._group)
+            cmd, arg, flag, *lengths = self._header.tolist()
+            if cmd == _STOP:
+                return
+            x = None
+            if cmd == _WORD:
+                x = torch.empty((self._streams, arg, E), device=self._device)
+                dist.broadcast(x, self._root, group=self._group)
+            self._gather(self._local(cmd, arg, flag, np.asarray(lengths),
+                                     x)[1])
+
+    # -- rank 0 -------------------------------------------------------------
+    def _run(self, cmd: int, arg: int, flag: int, Ts: List[int],
+             x: Optional[np.ndarray] = None):
+        """Rank 0: send the message, run its own slots, gather every slot's
+        audio -> (rank 0's decoded features or None, audio [streams, n])."""
+        self._tell(cmd, arg, flag, Ts)
+        xd = None
+        if x is not None:
+            xd = torch.as_tensor(x).to(self._device)
+            if self._world > 1:
+                dist.broadcast(xd, self._root, group=self._group)
+        pred, bits = self._local(cmd, arg, flag, np.asarray(Ts), xd)
+        return pred, self._gather(bits)
+
+    def _read(self, pred: Optional[torch.Tensor], bits: torch.Tensor,
+              T0: int):
+        """One device->host read: (slot 0's valid features or None, every
+        slot's packed audio)."""
+        F = self._model.nb_outputs
+        parts = [bits.reshape(-1)] if pred is None else \
+            [pred[0, :T0].reshape(-1), bits.reshape(-1)]
+        packed = torch.cat(parts).cpu().numpy()
+        if pred is None:
+            return None, packed
+        return packed[:T0 * F].reshape(T0, F), packed[T0 * F:]
+
+    def _batch_slots(self, data: np.ndarray):
+        """Per-slot segments -> (lengths, padded length, x [streams, Tp, E],
+        mask [streams, Tp]).  Slot 0 carries the live stream; the others
+        come from ``slot_feeder`` (distinct streams with their own lengths)
+        or replay the live segment."""
+        feeder = self.SETTINGS.slot_feeder
+        if feeder is None:
+            segs = [data] * self._streams
+        else:
+            segs = [data] + [np.asarray(b, np.float32)
+                             for b in feeder(self._streams - 1, len(data))]
+            if len(segs) != self._streams:
+                raise ValueError(
+                    f"slot_feeder yielded {len(segs) - 1} segments for "
+                    f"{self._streams - 1} background slots")
+        Ts = [len(seg) for seg in segs]
+        mult = self.SETTINGS.length_multiple
+        Tp = -(-max(Ts) // mult) * mult
+        x = np.zeros((self._streams, Tp, data.shape[1]), np.float32)
+        mask = np.zeros((self._streams, Tp), np.float32)
+        for i, seg in enumerate(segs):
+            x[i, :Ts[i]] = seg
+            mask[i, :Ts[i]] = 1.0
+        return Ts, Tp, x, mask
+
+    @staticmethod
+    def _unpack_slots(bits, Ts, lo_frame: int, chunk_frames: int):
+        """int16 audio per slot from the packed readback, each trimmed to
+        its own word length (clamped: an all-pad chunk ships nothing)."""
+        pcm = np.asarray(bits).view(np.int16).reshape(len(Ts), -1)
+        out = []
+        for i, T in enumerate(Ts):
+            valid = max(0, min(T - lo_frame, chunk_frames))
+            out.append(pcm[i, : valid * FRAME_SIZE])
+        return out
+
+    def _decode_and_vocode(self, data: np.ndarray):
+        """Single shot: every slot's whole word, one read."""
+        t0 = time.perf_counter()
+        Ts, Tp, x, _mask = self._batch_slots(data)
+        lpc, bits = self._read(*self._run(_WORD, Tp, 0, Ts, x), Ts[0])
+        slots = self._unpack_slots(bits, Ts, 0, Tp)
+        self.slot_audio = {i: a for i, a in enumerate(slots) if i > 0}
+        self._t_device_done = time.time()
+        self.word_ms.append((time.perf_counter() - t0) * 1000.0)
+        return lpc, slots[0]
+
+    def _decode_head(self, data: np.ndarray):
+        """Chunked word start: decode every slot and vocode its first
+        chunk, one read.  Returns (slot 0's features, its first chunk, the
+        tail chunks' frames still to vocode, the slots' lengths)."""
+        t0 = time.perf_counter()
+        Ts, Tp, x, _mask = self._batch_slots(data)
+        lpc, bits = self._read(*self._run(_WORD, Tp, 1, Ts, x), Ts[0])
+        slots = self._unpack_slots(bits, Ts, 0, self._chunk)
+        self._bg_parts = {i: [a] for i, a in enumerate(slots) if i > 0}
+        c = self._chunk
+        pending = [slice(k * c, (k + 1) * c) for k in range(1, Tp // c)]
+        self._t_device_done = time.time()
+        self.word_ms.append((time.perf_counter() - t0) * 1000.0)
+        return lpc, slots[0], pending, Ts
+
+    def _read_chunk(self, frames: slice, k: int, Ts) -> np.ndarray:
+        """Vocode and read tail chunk ``k`` (``frames``, an entry of the
+        head's pending list) of every slot; returns slot 0's.  Tails run
+        when they are read, as in FusedDecoderVocoder."""
+        _, bits = self._read(*self._run(_TAIL, frames.start, 0, Ts), 0)
+        slots = self._unpack_slots(bits, Ts, k * self._chunk, self._chunk)
+        for i, a in enumerate(slots):
+            if i > 0 and len(a):
+                self._bg_parts[i].append(a)
+        return slots[0]
+
+    @subscriber(INPUT)
+    @publisher(LPC)
+    @publisher(OUTPUT)
+    @publisher(WORD)
+    async def decode(self, msg: TimeSeriesMessage) -> AsyncGenerator:
+        loop = asyncio.get_running_loop()
+        data = np.asarray(msg.data, np.float32)
+        t_dispatch = time.time()
+        if not self._chunked:
+            lpc, audio = await loop.run_in_executor(
+                self._executor, self._decode_and_vocode, data)
+            stamps = (("dv_dispatch", t_dispatch),
+                      ("dv_device_done", self._t_device_done))
+            yield self.LPC, replace(msg, data=lpc, fs=100)
+            yield self.OUTPUT, _with_stamps(msg, stamps, data=audio,
+                                            fs=16000)
+            yield self.WORD, _anonymize(msg, data=audio, fs=16000)
+            return
+
+        lpc, audio0, pending, Ts = await loop.run_in_executor(
+            self._executor, self._decode_head, data)
+        stamps = (("dv_dispatch", t_dispatch),
+                  ("dv_device_done", self._t_device_done))
+        yield self.LPC, replace(msg, data=lpc, fs=100)
+        yield self.OUTPUT, _with_stamps(msg, stamps, data=audio0, fs=16000)
+        parts = [audio0]
+        for k, frames in enumerate(pending, start=1):
+            audio_k = await loop.run_in_executor(
+                self._executor, self._read_chunk, frames, k, Ts)
+            parts.append(audio_k)
+            if len(audio_k) == 0 and k != len(pending):
+                continue  # all-pad chunk: nothing to ship
+            if k == len(pending):
+                out = _with_stamps(msg, (("dv_dispatch", t_dispatch),
+                                         ("dv_word_complete", time.time())),
+                                   data=audio_k, fs=16000)
+            else:
+                out = _anonymize(msg, data=audio_k, fs=16000)
+            yield self.OUTPUT, out
+        word = np.concatenate(parts) if len(parts) > 1 else audio0
+        self.slot_audio = {i: np.concatenate(p) for i, p in
+                           self._bg_parts.items()}
         yield self.WORD, _anonymize(msg, data=word, fs=16000)
 # endregion
 

@@ -21,11 +21,14 @@ from .optim import torch_rmsprop
 from .trainer_vad import to_device
 
 
-def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor
-               ) -> torch.Tensor:
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+               count: Optional[float] = None) -> torch.Tensor:
     """Mean squared error over valid elements. pred/target [B, T, F],
-    mask [B, T]."""
+    mask [B, T].  ``count`` replaces the number of valid elements as the
+    denominator (a data-parallel shard divides by the global batch's)."""
     se = (pred - target).square() * mask[..., None]
+    if count is not None:
+        return se.sum() / count
     return se.sum() / torch.clamp(mask.sum() * pred.shape[-1], min=1.0)
 
 

@@ -16,7 +16,7 @@ what decides the skipped chunks without asking the card.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,10 +28,15 @@ from .optim import torch_rmsprop
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
-    """Mean CE over valid frames. logits [..., 2], labels/mask [...]."""
+                         mask: torch.Tensor, count: Optional[float] = None
+                         ) -> torch.Tensor:
+    """Mean CE over valid frames. logits [..., 2], labels/mask [...].
+    ``count`` replaces the number of valid frames as the denominator (a
+    data-parallel shard divides by the global batch's)."""
     logp = F.log_softmax(logits, dim=-1)
     ce = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    if count is not None:
+        return (ce * mask).sum() / count
     return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 

@@ -306,6 +306,12 @@ class NetVocoderState(NamedTuple):
     deemph: torch.Tensor    # [B]
     seed: int               # stream seed; noise is keyed by (seed, frame)
     frame_ctr: int          # absolute frame position of the stream
+    # The rows' place in the batch the noise is drawn for: row b is slot
+    # slot_lo + b of a batch of ``slots`` (0 = these B rows are the whole
+    # batch).  A shard of a sharded batch (parallel/shard.py) draws the
+    # whole batch's noise for its slots.
+    slot_lo: int = 0
+    slots: int = 0
 
 
 def net_vocoder_init(model: LPCNetModel, batch: int, seed: int = 0,
@@ -343,16 +349,28 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
 
 
 def gumbel_noise(seed: int, first_frame: int, frames: int, batch: int,
-                 device) -> torch.Tensor:
+                 device, slot_lo: int = 0, slots: int = 0) -> torch.Tensor:
     """Capped Gumbel noise [frames, FRAME_SIZE, batch, 256] for absolute
     frames ``first_frame ..``: a counter-based hash of (seed, absolute
     frame, position in the frame), so the noise of a frame never depends
-    on how calls chunk the stream, and CPU and CUDA draw the same bits."""
-    per_frame = FRAME_SIZE * batch * MULAW_LEVELS
+    on how calls chunk the stream, and CPU and CUDA draw the same bits.
+
+    The position counts over a batch of ``slots`` streams (0 = ``batch``),
+    of which these are slots ``slot_lo ..``: a shard of a batch draws
+    exactly its rows of the whole batch's noise."""
+    slots = slots or batch
+    if not 0 <= slot_lo <= slots - batch:
+        raise ValueError(f"slots {slot_lo}..{slot_lo + batch - 1} lie "
+                         f"outside a batch of {slots}")
     f = torch.arange(first_frame, first_frame + frames, dtype=torch.long,
                      device=device) & _M32
     key = _fmix32(_fmix32(f) ^ (int(seed) & _M32))             # [frames]
-    j = torch.arange(per_frame, dtype=torch.long, device=device)
+    pos = torch.arange(FRAME_SIZE, dtype=torch.long, device=device)
+    slot = torch.arange(slot_lo, slot_lo + batch, dtype=torch.long,
+                        device=device)
+    level = torch.arange(MULAW_LEVELS, dtype=torch.long, device=device)
+    j = ((pos[:, None, None] * slots + slot[None, :, None]) * MULAW_LEVELS
+         + level).reshape(-1)
     bits = _fmix32(key[:, None] ^ j[None, :])                  # [frames, n]
     u = (bits >> 8).float() * (1.0 / (1 << 24)) + 1e-9
     g = torch.clamp(-torch.log(-torch.log(u)), max=NOISE_CAP)
@@ -441,7 +459,8 @@ def net_synthesize_frames(model: LPCNetModel, params: Params,
             noise = (torch.clamp(gumbel[s:s + L], max=NOISE_CAP)
                      if gumbel is not None else
                      gumbel_noise(state.seed, state.frame_ctr + s, L, B,
-                                  features.device))
+                                  features.device, state.slot_lo,
+                                  state.slots))
         carry, sig = run_sampler(
             w, carry, cond.transpose(0, 1).contiguous(),
             lpc.transpose(0, 1).contiguous(),
@@ -454,4 +473,5 @@ def net_synthesize_frames(model: LPCNetModel, params: Params,
     return pcm, NetVocoderState(
         h_a=h_a, h_b=h_b, sig_mem=sig_mem, exc_idx=exc_idx,
         feat_mem=feats_ctx_all[:, -FEAT_CONTEXT:], deemph=deemph,
-        seed=state.seed, frame_ctr=state.frame_ctr + T)
+        seed=state.seed, frame_ctr=state.frame_ctr + T,
+        slot_lo=state.slot_lo, slots=state.slots)

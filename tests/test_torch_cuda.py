@@ -766,3 +766,88 @@ def test_contamination_surrogates_on_the_card_match_numpy(dev):
         want, _ = tc.lagged_correlation_measure(np.roll(a, int(s), axis=0),
                                                 b, 25)
         np.testing.assert_allclose(g, want, rtol=1e-4)
+
+
+def test_sampler_kernel_greedy_at_sixteen_streams(dev):
+    """K2 at the scale-out path's widest tested batch, 16 streams (two
+    clusters' waves on some cards): greedy over two frames, identical
+    excitations, PCM and state within 1e-5."""
+    w, carry, cond, lpc, temp = _flagship_inputs(dev, 2, seed=4, batch=16)
+    temp = -torch.ones_like(temp)
+    kc, ks = sampler_frames(w, carry, cond, lpc, temp, None)
+    pc, ps = sampler_frames_plain(w, carry, cond, lpc, temp, None)
+    torch.cuda.synchronize()
+    assert tuple(kc[3].shape) == (16,)
+    assert torch.equal(kc[3], pc[3])
+    torch.testing.assert_close(ks, ps, atol=1e-5, rtol=0)
+    for a, b in zip(kc[:3], pc[:3]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_bunched_sampler_kernel_b8_at_eight_streams(dev):
+    """K3 on the shipped b8 checkpoint at eight streams (the sharded word
+    unit's batch): greedy over two frames, identical excitations, PCM
+    within 1e-5."""
+    w, carry, cond, lpc, temp = _flagship_inputs(
+        dev, 2, seed=5, name="vocoder_speech_b8.npz", batch=8)
+    temp = -torch.ones_like(temp)
+    kc, ks = sampler_frames_bunched(w, carry, cond, lpc, temp, None)
+    pc, ps = sampler_frames_bunched_plain(w, carry, cond, lpc, temp, None)
+    torch.cuda.synchronize()
+    assert tuple(kc[3].shape) == (8, 8)
+    assert torch.equal(kc[3], pc[3])
+    torch.testing.assert_close(ks, ps, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["vocoder_speech.npz",
+                                  "vocoder_speech_b8.npz"])
+def test_sharded_word_unit_chunked_equals_single_shot_on_the_card(dev, name):
+    """ShardedFusedDecoderVocoder at world 1 on the card (a world-1 NCCL
+    group), eight distinct slots on the shipped checkpoint: chunked
+    emission equals the single-shot path bit for bit for every slot, each
+    slot T_i x 160 samples, the sampler launched once a chunk."""
+    import torch.distributed as dist
+
+    from dss_tpu_torch.models.decoder import BidirectionalSpeechSynthesisModel
+    from dss_tpu_torch.runtime.units import ShardedFusedDecoderVocoder, \
+        ShardedFusedDecoderVocoderSettings
+
+    lengths = [60, 30, 55, 100, 42, 77, 50, 88]
+    rng = np.random.default_rng(3)
+    segs = [rng.normal(size=(T, 64)).astype(np.float32) for T in lengths]
+    kernel = sampler_frames if name == "vocoder_speech.npz" \
+        else sampler_frames_bunched
+
+    def unit(chunked):
+        u = ShardedFusedDecoderVocoder()
+        u.apply_settings(ShardedFusedDecoderVocoderSettings(
+            path_to_model_weights=None,
+            model=BidirectionalSpeechSynthesisModel,
+            params=dict(nb_layer=2, nb_hidden_units=100, nb_electrodes=64),
+            vocoder_weights=str(REPO / "weights" / name), streams=8,
+            slot_feeder=lambda n, t: segs[1:], chunk_emission=chunked,
+            device="cuda"))
+        u.initialize()
+        return u
+
+    try:
+        chunked, single = unit(True), unit(False)
+        assert dist.get_backend() == "nccl" and chunked._world == 1
+        before = kernel.launches
+        lpc_c, a0, pending, Ts = chunked._decode_head(segs[0])
+        parts = [a0] + [chunked._read_chunk(f, k, Ts)
+                        for k, f in enumerate(pending, start=1)]
+        assert kernel.launches == before + 2
+        lpc_s, a0_s = single._decode_and_vocode(segs[0])
+        np.testing.assert_array_equal(lpc_c, lpc_s)
+        np.testing.assert_array_equal(np.concatenate(parts), a0_s)
+        assert len(a0_s) == lengths[0] * 160
+        for i in range(1, 8):
+            got = np.concatenate(chunked._bg_parts[i])
+            np.testing.assert_array_equal(got, single.slot_audio[i])
+            assert len(got) == lengths[i] * 160
+        for u in (chunked, single):
+            u.shutdown()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
