@@ -150,6 +150,29 @@
    (its JSON line); the data-parallel decoder, nVAD and vocoder steps at
    world 1 (deployed and shipped widths) against the plain single-card
    steps' losses (rtol 1e-6).
+   Then the replication pipeline (phase "replicate"):
+   dss_tpu_torch.apps.replicate, replicate.sh's eight stages at the
+   reference's epochs (nVAD 8, decoder 20), on
+   tools/make_replicate_dataset.py --speech --vocoder net --seed 0 (four
+   days of twice the six keywords, a 33 s online session of six words)
+   with its INI on vocoder_speech.npz (K2 on the live path), a free port
+   and a 6 s idle timeout: the contamination analysis, corpus
+   preparation (in memory where h5py is missing), both trainings, the
+   normalization statistics, supplementary figure 2 (arrays; drawn where
+   matplotlib imports), the replay amplifier as its own process held back
+   until the decoder logs "starting sources", and the live decoder over
+   ZMQ.  Then stages 4-8 once more with the decoder trained 100 epochs
+   (RETRAINED_DECODER_EPOCHS: at 20 it has not converged and every word
+   renders as one).  Each run is scored by eval/score_closed_loop.py
+   (online against offline resynthesis through K2, the online squelch)
+   and eval/score_speech_run.py (keyword ID and STOI against the session's
+   own templates and the speaker-shifted ones of
+   tools/make_speech_corpus.py --shifted-val --seed 777).  It fails unless
+   in each run every stage completes, 80% of the segments map to words,
+   the reco wavs and the stdout PCM hold the logged LPC frames x 160
+   samples, the mean |online - offline| is at most 1 dB and the front-end
+   kernel and K2 launched, and unless keyword ID against the shifted
+   templates is above 1/6 in the second run.
 4. Prints the kernels' line, latencies, the card's name and power limit,
    and last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
    without that line.  ``--report PATH`` also writes every measurement
@@ -316,31 +339,6 @@ def amplifier(mat, port, timeout=60.0):
                              f"{err_path.read_text()[-2000:]}")
 
 
-def threshold_vad():
-    """tools/make_verify_fixtures.py's threshold VAD as a 2 x 150 LSTM
-    state_dict: speech iff mean(feature) > -2.5."""
-    H, IN, s, theta = 150, 64, 10.0, -2.5
-    sd = {}
-    for layer, in_size in ((0, IN), (1, H)):
-        w_ih = np.zeros((4 * H, in_size), np.float32)
-        b_ih = np.zeros(4 * H, np.float32)
-        b_ih[0:H], b_ih[H:2 * H], b_ih[3 * H:] = 10.0, -10.0, 10.0
-        if layer == 0:
-            w_ih[2 * H, :] = s / IN
-            b_ih[2 * H] = -s * theta
-        else:
-            w_ih[2 * H, 0] = s
-        sd[f"lstm.weight_ih_l{layer}"] = w_ih
-        sd[f"lstm.weight_hh_l{layer}"] = np.zeros((4 * H, H), np.float32)
-        sd[f"lstm.bias_ih_l{layer}"] = b_ih
-        sd[f"lstm.bias_hh_l{layer}"] = np.zeros(4 * H, np.float32)
-    cls_w = np.zeros((2, H), np.float32)
-    cls_w[0, 0], cls_w[1, 0] = -5.0, 5.0
-    sd["classifier.weight"] = cls_w
-    sd["classifier.bias"] = np.zeros(2, np.float32)
-    return sd
-
-
 def gathered_rows(S, carry, lpc, sig):
     """(rows of the fused GRU-A tables, rows of the correction tables) that
     one sampler call gathers, counted once each over all streams:
@@ -482,6 +480,241 @@ def net_gates(name, sc):
             (f"{name} keyword ID >= 0.75", sc["keyword_id_accuracy"] >= 0.75)]
 
 
+@contextmanager
+def eager_cascade_forbidden():
+    """While the block runs, the eager IIR cascade raises on a CUDA tensor
+    (the front-end kernel must run in its place); yields the shapes it was
+    tried on, which a unit's thread may otherwise swallow."""
+    from dss_tpu_torch.ops import filter_log_power as flp_mod
+    from dss_tpu_torch.ops import filters as filters_mod
+    from dss_tpu_torch.ops import hga as hga_mod
+    from dss_tpu_torch.ops.filters import sosfilt_scan
+    on_card = []
+
+    def guard(sos, x, zi):
+        if x.is_cuda:
+            on_card.append(tuple(x.shape))
+            raise AssertionError("eager cascade on the card")
+        return sosfilt_scan(sos, x, zi)
+    mods = (hga_mod, filters_mod, flp_mod)
+    for m in mods:
+        m.sosfilt_scan = guard
+    try:
+        yield on_card
+    finally:
+        for m in mods:
+            m.sosfilt_scan = sosfilt_scan
+
+
+def correct_fraction(confusion):
+    """Keyword ID from a confusion table ({word: {predicted: count}}),
+    unrounded: the reports round it to 4 decimals, and 1/6 rounds above
+    1/6."""
+    total = sum(sum(row.values()) for row in confusion.values())
+    return sum(row.get(word, 0) for word, row in confusion.items()) / total
+
+
+# replicate.sh trains the decoder 20 epochs.  On the --speech tree that
+# leaves it far from converged (validation MSE 1.54 against 0.19 at 100
+# epochs, where JAX's headline run ended: 0.188) and every word renders as
+# the same one, keyword ID at the 1-in-6 chance level (PERF.md).
+# The phase therefore runs the pipeline at the reference's epochs, and
+# then stages 4-8 again with the decoder trained this many epochs: the
+# keyword gate reads that second run.
+RETRAINED_DECODER_EPOCHS = 100
+
+
+def score_replication(run_dir, base, shifted_dir, weights, pcm_bytes):
+    """A replication's closed-loop run scored: the segments and samples
+    logged, online against offline resynthesis (eval/score_closed_loop.py
+    with the online squelch), keyword ID and STOI against the session's
+    own and the speaker-shifted templates (eval/score_speech_run.py)."""
+    from dss_tpu_torch.eval import score_closed_loop, score_speech_run
+    try:
+        feats, recos = score_closed_loop.read_segments(run_dir)
+        closed = score_closed_loop.score_run(
+            run_dir, str(weights), quiet_sharpen=True, device="cuda")
+        speech = score_speech_run.score_run(run_dir, str(base),
+                                            str(shifted_dir), device="cuda")
+    except SystemExit as e:  # the scorers' refusals, as failures
+        raise AssertionError(f"scoring the run: {e}") from None
+    own, shifted = speech["vs_own_templates"], speech["vs_shifted_templates"]
+    mapped = speech["n_segments_scored"]
+    return dict(
+        segments=len(feats), lpc_frames=sum(len(f) for f in feats),
+        reco_samples=sum(len(r) for r in recos), pcm_bytes=pcm_bytes,
+        segments_mapped=mapped,
+        segments_emitted=mapped + speech["n_segments_unmapped"],
+        words_covered=speech["words_covered"],
+        closed_loop={k: v for k, v in closed.items() if k != "segments"},
+        closed_loop_abs_delta_db_mean=float(np.mean(
+            [abs(r["delta_db"]) for r in closed["segments"]])),
+        keyword_id={"own": correct_fraction(own["confusion"]),
+                    "shifted": correct_fraction(shifted["confusion"])},
+        stoi={"own": own.get("stoi_mean"), "shifted": shifted.get("stoi_mean")},
+        confusion={"own": own["confusion"], "shifted": shifted["confusion"]})
+
+
+def replication_gates(sc, launches):
+    """The gates every replication run holds to (the keyword gate is
+    added by the caller)."""
+    return [
+        ("80% of the segments map to a word",
+         sc["segments_mapped"] >= 0.8 * sc["segments_emitted"]),
+        ("reco samples == LPC frames x 160",
+         sc["reco_samples"] == sc["lpc_frames"] * 160),
+        ("stdout PCM == reco samples x 2 bytes",
+         sc["pcm_bytes"] == sc["reco_samples"] * 2),
+        ("mean |online - offline| <= 1.0 dB",
+         sc["closed_loop_abs_delta_db_mean"] <= 1.0),
+        ("the front-end kernel launched", launches["filter_log_power"] > 0),
+        ("K2 launched", launches["lpcnet_sampler_b1"] > 0),
+    ]
+
+
+def print_replication(name, sc):
+    cl = sc["closed_loop"]
+    print(f"  [{name}] segments emitted {sc['segments_emitted']}, mapped to "
+          f"words {sc['segments_mapped']} ({sc['words_covered']}); "
+          f"{sc['lpc_frames']} LPC frames, {sc['reco_samples']} reco "
+          f"samples, {sc['pcm_bytes']} PCM bytes")
+    print(f"  [{name}] keyword ID own {sc['keyword_id']['own']:.4f} (STOI "
+          f"{sc['stoi']['own']}), shifted {sc['keyword_id']['shifted']:.4f} "
+          f"(STOI {sc['stoi']['shifted']}); JAX on a TPU over 109 words "
+          f"(SPEECHRUN_r05.json): own 0.33, shifted 0.67; confusion "
+          f"{sc['confusion']}")
+    print(f"  [{name}] online vs offline over {cl['n_segments']} segments: "
+          f"mean |delta| {sc['closed_loop_abs_delta_db_mean']:.3f} dB, mean "
+          f"{cl['delta_db_mean']} dB, max |delta| {cl['delta_db_max']} dB "
+          f"(online {cl['online_db_mean']}, offline {cl['offline_db_mean']} "
+          f"dB)")
+
+
+def replicate_phase(zero_counts, read_counts):
+    """replicate.sh's eight stages on the port (``apps.replicate``), with
+    the reference's epochs (8 and 20), on tools/make_replicate_dataset.py
+    --speech --vocoder net --seed 0 (two repetitions of the six keywords a
+    day); its INI copied with the shipped bunch-1 checkpoint on the live
+    path, a free port and a 6 s idle timeout.  Then stages 4-8 once more
+    with the decoder trained RETRAINED_DECODER_EPOCHS.  Each closed-loop
+    run is scored against the session's own templates and speaker-shifted
+    ones (tools/make_speech_corpus.py --shifted-val --seed 777).  The
+    kernels' counts are zeroed just before each run and read just after
+    it."""
+    from dss_tpu_torch.apps import replicate
+
+    weights = ROOT / "weights" / "vocoder_speech.npz"
+    out = {"retrained_decoder_epochs": RETRAINED_DECODER_EPOCHS}
+    with tempfile.TemporaryDirectory() as tmp:
+        base, temp = Path(tmp) / "data", Path(tmp) / "temp"
+        shifted = Path(tmp) / "shifted" / "val_shifted"
+        t0 = time.perf_counter()
+        makers = [subprocess.Popen(
+            [sys.executable, str(ROOT / "tools" / tool), str(out_dir), *args],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            for tool, out_dir, args in (
+                ("make_replicate_dataset.py", base,
+                 ["--speech", "--vocoder", "net", "--seed", "0", "--reps",
+                  "2", "--temp-dir", str(temp)]),
+                ("make_speech_corpus.py", shifted.parent,
+                 ["--seconds", "4", "--seed", "777", "--shifted-val"]))]
+        for maker in makers:
+            _, err = maker.communicate(timeout=300)
+            if maker.returncode != 0:
+                raise AssertionError(f"{maker.args[1]}: {err[-2000:]}")
+        out["dataset_s"] = time.perf_counter() - t0
+        ini = Path(tmp) / "replicate.ini"
+        lines = []
+        for line in (base / "replicate_settings.ini").read_text() \
+                .splitlines():
+            key = line.split("=")[0].strip()
+            if key == "vocoder_weights":
+                line = f"vocoder_weights = {weights}"
+            elif key == "port":
+                line = f"port = {free_port()}"
+            elif key == "idle_timeout":
+                line = "idle_timeout = 6"
+            lines.append(line)
+        ini.write_text("\n".join(lines) + "\n")
+        cfg = replicate.ReplicateConfig.from_env(dict(
+            DATA_DIR=str(base / "KeywordReading"),
+            NORM_DIR=str(base / "SyllableRepetition"),
+            LIVE_DIR=str(base / "KeywordReading" / "online_sessions"),
+            TEMP_DIR=str(temp), SETTINGS=str(ini)), device="cuda")
+        rep = replicate.Replication(cfg)
+        epochs = replicate.DECODER_EPOCHS
+        for name, first in (("reference", 1), ("retrained", 4)):
+            cfg.stage = first
+            replicate.DECODER_EPOCHS = epochs if first == 1 \
+                else RETRAINED_DECODER_EPOCHS
+            try:
+                with eager_cascade_forbidden() as on_card:
+                    zero_counts()
+                    t0 = time.perf_counter()
+                    stages = rep.run()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = read_counts()
+            finally:
+                replicate.DECODER_EPOCHS = epochs
+            if on_card:
+                raise AssertionError(f"the eager cascade ran on the card "
+                                     f"{len(on_card)} times")
+            if sorted(stages) != list(range(first, 9)):
+                raise AssertionError(f"{name}: stages run {sorted(stages)}")
+            sc = score_replication(stages[8]["run_dir"], base, shifted,
+                                   weights, stages[8]["pcm_bytes"])
+            sc.update(wall_s=wall, launches=launches,
+                      stage_s={n: r["seconds"] for n, r in stages.items()},
+                      decoder_history=stages[4]["history"])
+            if first == 1:
+                sc.update(
+                    vad_history=stages[3]["history"],
+                    corpus_in_memory=stages[2]["in_memory"],
+                    figures={"contamination_report": stages[1]["figure"],
+                             "suppl_fig_2": stages[6]["figure"]},
+                    suppl_fig_2_trials=stages[6]["trials_used"])
+            out[name] = sc
+    ref, re_ = out["reference"], out["retrained"]
+    out["launches"] = ref["launches"]
+    print(f"replicate: dataset {out['dataset_s']:.1f} s; at the reference's "
+          f"epochs, stages 1-8 in {ref['wall_s']:.1f} s: "
+          f"{ref['stage_s']}; corpus kept in memory: "
+          f"{ref['corpus_in_memory']}")
+    print("  nVAD losses by epoch (train, valid, valid acc): "
+          + str([(round(h["train_loss"], 4), round(h["valid_loss"], 4),
+                  round(h["valid_acc"], 4)) for h in ref["vad_history"]]))
+    print("  decoder losses by epoch (train, valid): "
+          + str([(round(h["train_loss"], 4), round(h["valid_loss"], 4))
+                 for h in ref["decoder_history"]]))
+    print(f"  figures drawn: {ref['figures']} (None: matplotlib is not "
+          f"installed; the arrays are saved); suppl. fig. 2 over "
+          f"{ref['suppl_fig_2_trials']} trials")
+    print_replication("reference epochs", ref)
+    print(f"  launches {ref['launches']}")
+    h = re_["decoder_history"]
+    print(f"  stages 4-8 again, the decoder trained "
+          f"{RETRAINED_DECODER_EPOCHS} epochs, in {re_['wall_s']:.1f} s: "
+          f"{re_['stage_s']}; decoder losses (train, valid) at epochs 20, "
+          f"50, {len(h)}: " + str([(round(h[k - 1]['train_loss'], 4),
+                                     round(h[k - 1]['valid_loss'], 4))
+                                    for k in (20, 50, len(h))]))
+    print_replication(f"decoder {RETRAINED_DECODER_EPOCHS} epochs", re_)
+    print(f"  launches {re_['launches']}")
+    gates = [(f"reference epochs: {g}", ok)
+             for g, ok in replication_gates(ref, ref["launches"])]
+    gates += [(f"decoder {RETRAINED_DECODER_EPOCHS} epochs: {g}", ok)
+              for g, ok in replication_gates(re_, re_["launches"])]
+    gates.append((f"decoder {RETRAINED_DECODER_EPOCHS} epochs: keyword ID "
+                  f"vs shifted templates > 1/6",
+                  re_["keyword_id"]["shifted"] > 1.0 / 6.0))
+    out["gates"] = {name: bool(ok) for name, ok in gates}
+    failed = [name for name, ok in gates if not ok]
+    if failed:
+        raise AssertionError(f"replicate gates failed: {failed}")
+    return out
+
+
 class Phases:
     """Runs each phase, records failures, and lets later phases run."""
 
@@ -527,6 +760,9 @@ def main(report_path=None) -> int:
     from dss_tpu_torch.utils.profiling import device_trace, trace_files, \
         trace_summary
     from dss_tpu_torch.vocoder.mulaw import MULAW_LEVELS
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from torch_make_verify_fixtures import threshold_vad
 
     dev = resolve_device("cuda")
     ph = Phases()
@@ -1218,30 +1454,16 @@ def main(report_path=None) -> int:
                             (self.WORDS.LPC, self.SINK.LPC))
 
             system = System()
-            eager_on_card = []
-
-            def guard(sos, x, zi):
-                if x.is_cuda:
-                    eager_on_card.append(tuple(x.shape))
-                    raise AssertionError("eager cascade on the card")
-                return sosfilt_scan(sos, x, zi)
-            mods = (hga_mod, filters_mod, flp_mod)
-            for m in mods:
-                m.sosfilt_scan = guard
             amp = amplifier(mat, port) if zmq else nullcontext()
-            try:
-                with amp:
-                    zero_counts()
-                    t0 = time.perf_counter()
-                    with device_trace(trace_dir) if trace_dir else \
-                            nullcontext():
-                        ez.run_system(system)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                    launches = read_counts()
-            finally:
-                for m in mods:
-                    m.sosfilt_scan = sosfilt_scan
+            with eager_cascade_forbidden() as eager_on_card, amp:
+                zero_counts()
+                t0 = time.perf_counter()
+                with device_trace(trace_dir) if trace_dir else \
+                        nullcontext():
+                    ez.run_system(system)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_counts()
         sink = system.SINK
         outputs[key] = (sink.words, sink.lpc)
         mp = report["main_path"][key] = {"vocoder_weights": weights_name,
@@ -1608,33 +1830,23 @@ def main(report_path=None) -> int:
 
             # -- corpus preparation, the front-end kernel once a trial and
             # the bad-channel patching on the card for the flagged day
-            eager_on_card, patched = [], []
-
-            def guard(sos, x, zi):
-                if x.is_cuda:
-                    eager_on_card.append(tuple(x.shape))
-                    raise AssertionError("eager cascade on the card")
-                return sosfilt_scan(sos, x, zi)
+            patched = []
 
             def counted_patch(self, data):
                 patched.append(data.is_cuda)
                 return patch_call(self, data)
-            mods = (hga_mod, filters_mod, flp_mod)
-            for m in mods:
-                m.sosfilt_scan = guard
             patch_call = BadChannelCorrection.__call__
             BadChannelCorrection.__call__ = counted_patch
             try:
-                zero_counts()
-                t0 = time.perf_counter()
-                corpus = pc.prepare(base / "corpus", norm_dir, [data_dir],
-                                    device=dev)
-                torch.cuda.synchronize()
-                prep_s = time.perf_counter() - t0
-                launches = read_counts()
+                with eager_cascade_forbidden() as eager_on_card:
+                    zero_counts()
+                    t0 = time.perf_counter()
+                    corpus = pc.prepare(base / "corpus", norm_dir,
+                                        [data_dir], device=dev)
+                    torch.cuda.synchronize()
+                    prep_s = time.perf_counter() - t0
+                    launches = read_counts()
             finally:
-                for m in mods:
-                    m.sosfilt_scan = sosfilt_scan
                 BadChannelCorrection.__call__ = patch_call
             frames = sum(len(r["trial_ids"]) for r in corpus.values())
             tp["corpus"] = dict(
@@ -2896,6 +3108,13 @@ def main(report_path=None) -> int:
            "streams a card, serve_multichip, data-parallel steps)",
            scale_out)
 
+    # ---- replicate.sh's eight stages on the port, scored ---------------------
+    def replicate():
+        report["replicate"] = replicate_phase(zero_counts, read_counts)
+    ph.run("replicate (the eight stages of replicate.sh on a keyword-speech "
+           "dataset at the reference's epochs; closed-loop and keyword "
+           "scoring)", replicate)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2943,7 +3162,9 @@ def main(report_path=None) -> int:
     # corpus preparation (the front-end kernel once a trial), the decoder
     # app (D1 once a synthesis job) and the scoring (K2, K3, D1); the vocoder
     # training app's runs at bunch 1 and 8 (D2 each step, K2 / K3 in their
-    # validation scoring).
+    # validation scoring); the replication's eight stages (the front-end
+    # kernel in corpus preparation, the statistics and the live loop, D1 in
+    # the decoder app's queue, K2 in the live loop).
     tp = report["training_path"]
     runs = {p: mp["launches"] for p, mp in report["main_path"].items()}
     runs.update({"training_corpus": tp["corpus"]["launches"],
@@ -2955,6 +3176,8 @@ def main(report_path=None) -> int:
     so = report["scale_out"]
     runs.update({k: v["launches"] for k, v in so.items()
                  if k.startswith(("scaleout_", "serve_multichip_"))})
+    runs["replicate"] = report["replicate"]["launches"]
+    runs["replicate_retrained"] = report["replicate"]["retrained"]["launches"]
     kernels = []
     for name, (route, src, replaces) in meta.items():
         k = report["kernels"][name]

@@ -203,7 +203,9 @@ def main(cfg: TrainingConfiguration, recordings: Recordings = None
     return history
 
 
-if __name__ == "__main__":
+def parse_config(argv=None) -> TrainingConfiguration:
+    """The command line's training configuration (the deployed decoder:
+    2 x 100 bidirectional)."""
     parser = argparse.ArgumentParser(
         description="Train the bidirectional speech decoding model.")
     parser.add_argument("corpus_dir", help="Path to the preprocessed corpus with the .hdf files.")
@@ -221,17 +223,15 @@ if __name__ == "__main__":
                              "(reference default: 1).")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda).")
-    args = parser.parse_args()
-    out_dir = Path(args.out_dir)
-
-    train_config = TrainingConfiguration(
+    args = parser.parse_args(argv)
+    return TrainingConfiguration(
         nb_hidden_units=100,
         nb_layer=2,
         nb_epochs=int(args.epochs),
         batch_size=args.batch_size,
         num_workers=4,
         speech_corpus_root=Path(args.corpus_dir),
-        out_dir=out_dir,
+        out_dir=Path(args.out_dir),
         test_day=args.test_day,
         valid_day=args.val_day,
         resume=args.resume,
@@ -239,6 +239,10 @@ if __name__ == "__main__":
         device=args.device,
     )
 
+
+if __name__ == "__main__":
+    train_config = parse_config()
+    out_dir = train_config.out_dir
     os.makedirs(out_dir.as_posix(), exist_ok=True)
     logging.basicConfig(
         level=logging.INFO,

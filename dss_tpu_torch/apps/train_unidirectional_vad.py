@@ -223,7 +223,9 @@ def main(cfg: TrainingConfiguration, recordings: Recordings = None
     return history
 
 
-if __name__ == "__main__":
+def parse_config(argv=None) -> TrainingConfiguration:
+    """The command line's training configuration (the deployed nVAD:
+    2 x 150, TBPTT 50)."""
     parser = argparse.ArgumentParser(description="Train the unidirectional VAD model.")
     parser.add_argument("corpus_dir", help="Path to the preprocessed corpus with the .hdf files.")
     parser.add_argument("out_dir", help="Directory in which the model training will be saved.")
@@ -237,10 +239,8 @@ if __name__ == "__main__":
                              "the reference recipe uses 1).")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda).")
-    args = parser.parse_args()
-    out_dir = Path(args.out_dir)
-
-    train_config = TrainingConfiguration(
+    args = parser.parse_args(argv)
+    return TrainingConfiguration(
         nb_hidden_units=150,
         nb_layer=2,
         nb_epochs=int(args.epochs),
@@ -248,13 +248,17 @@ if __name__ == "__main__":
         num_workers=0,
         truncated_sequence_length=50,
         speech_corpus_root=Path(args.corpus_dir),
-        out_dir=out_dir,
+        out_dir=Path(args.out_dir),
         test_day=args.test_day,
         valid_day=args.val_day,
         resume=args.resume,
         device=args.device,
     )
 
+
+if __name__ == "__main__":
+    train_config = parse_config()
+    out_dir = train_config.out_dir
     os.makedirs(out_dir.as_posix(), exist_ok=True)
     logging.basicConfig(
         level=logging.INFO,

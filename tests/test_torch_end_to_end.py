@@ -10,6 +10,7 @@ against the JAX package's native one, byte for byte."""
 import configparser
 import contextlib
 import logging
+import sys
 import threading
 import time
 from pathlib import Path
@@ -29,6 +30,9 @@ from dss_tpu_torch.runtime.units import interpret_bci2000_packet, \
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO / "tools"))
+from torch_make_verify_fixtures import threshold_vad  # noqa: E402
+
 # 5899 and 5898 belong to test_end_to_end.py and test_multichip_graph.py.
 PORT = 5897
 
@@ -56,28 +60,9 @@ def _make_session_mat(path, fs=1000, seconds=6.0, burst=(2.0, 3.5)):
 
 
 def _threshold_vad(path):
-    """tools/make_verify_fixtures.py's threshold VAD (speech iff
+    """tools/torch_make_verify_fixtures.py's threshold VAD (speech iff
     mean(feature) > -2.5) as a 2 x 150 LSTM checkpoint file."""
-    H, IN, s, theta = 150, 64, 10.0, -2.5
-    sd = {}
-    for layer, in_size in ((0, IN), (1, H)):
-        w_ih = np.zeros((4 * H, in_size), np.float32)
-        b_ih = np.zeros(4 * H, np.float32)
-        b_ih[0:H], b_ih[H:2 * H], b_ih[3 * H:] = 10.0, -10.0, 10.0
-        if layer == 0:
-            w_ih[2 * H, :] = s / IN
-            b_ih[2 * H] = -s * theta
-        else:
-            w_ih[2 * H, 0] = s
-        sd[f"lstm.weight_ih_l{layer}"] = w_ih
-        sd[f"lstm.weight_hh_l{layer}"] = np.zeros((4 * H, H), np.float32)
-        sd[f"lstm.bias_ih_l{layer}"] = b_ih
-        sd[f"lstm.bias_hh_l{layer}"] = np.zeros(4 * H, np.float32)
-    cls_w = np.zeros((2, H), np.float32)
-    cls_w[0, 0], cls_w[1, 0] = -5.0, 5.0
-    sd["classifier.weight"] = cls_w
-    sd["classifier.bias"] = np.zeros(2, np.float32)
-    np.savez(path, **sd)
+    np.savez(path, **threshold_vad())
     return path
 
 
