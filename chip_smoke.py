@@ -34,7 +34,9 @@
    behind it) on seeded features with voiced and unvoiced frames and
    periods 32-256, at one stream x 260 frames (a word), eight x 50 and one
    x 1, against its plain version run on the CPU: pcm and carried state bit
-   for bit; through the vocoder 100 frames must equal 50 + 50 bit for bit;
+   for bit, and the same loop compiled for the host
+   (``dsp_synthesis_host``, what CPU tensors take) bit for bit with both;
+   through the vocoder 100 frames must equal 50 + 50 bit for bit;
    timed per 260-frame word by torch.profiler and events beside an empty
    launch, with its bound and the serial chain's estimate.
 3. Drives the port's online word path twice, with the shipped
@@ -99,13 +101,14 @@
    epochs: teacher-forced, scheduled sampling twice, free-running; pruning
    0.6 -> 0.2; validation on two val wavs of the seed-777 corpus through K2,
    the first scoring refused by the density gate, the second saved) and at
-   bunch 8 (two epochs, K3 in its scoring), with D2 launched as predicted
-   (once a teacher-forced or free-running step, twice a sampled one); the
+   bunch 8 (one teacher-forced epoch, K3 in its scoring), with D2 launched
+   as predicted (once a teacher-forced or free-running step, twice a
+   sampled one); the
    card-trained checkpoint keeping 43 of 216 GRU-A tiles, greedy through K2
    over 50 frames equal to the plain version, and loaded by LPCNet; each
    stage's ms a step (events) and device split (profiler); 30
-   teacher-forced steps on one batch whose loss must fall; --resume to a
-   fifth epoch; one epoch's fine-tune of weights/vocoder_speech.npz at lr
+   teacher-forced steps on one batch whose loss must fall; --resume of the
+   bunch-8 run to a second epoch; one epoch's fine-tune of weights/vocoder_speech.npz at lr
    1e-5 (its mask inherited) scored with the gates above.
    Then the single-card remainder: an LPCNet checkpoint in the xiph Keras
    layout at the released widths (dense GRU-A 384, GRU-B 16, embedding and
@@ -173,6 +176,23 @@
    samples, the mean |online - offline| is at most 1 dB and the front-end
    kernel and K2 launched, and unless keyword ID against the shifted
    templates is above 1/6 in the second run.
+   Then the ports of the JAX package's last tools (phase "tools"), the
+   kernels' counts zeroed before the phase and read after it:
+   dss_tpu_torch.eval.score_exteval on tools/make_hnm_corpus.py's corpus
+   at seed 515151 (2 variants x 2 registers, 24 utterances) through
+   vocoder_speech.npz at temperatures 1.0 and 1.3, held to the JAX
+   package's gates (tests/test_exteval_hnm.py: keyword ID >= 0.75, CD <
+   12.4 dB, margin median >= 0.08); tools/torch_make_import_fixture.py's
+   released-width xiph datasets (GRU-A 384 dense, GRU-B 16, pitch
+   embedding, inner biases) and its 3 s .f32 through
+   tools/torch_vocoder_ab.py with --rtf, against the DSP rendering of the
+   same file (K2 must launch, D1 once); tools/torch_sampler_microbench.py
+   (sparse-f32 and bunch8-sparse, 100 frames, chains of 8, the shipped
+   checkpoint's tile pattern), whose us/sample must lie within 20% of
+   PERF.md's K2 and b8 block times; tools/torch_bucket_sweep.py --synthetic
+   200 --measure --multiples 25 50 100 on the deployed decoder; and
+   dss_tpu_torch.graft_entry: entry()'s forward, then dryrun_multichip(1)
+   on a world-1 NCCL group, all seven steps.  K2 and K3 must launch.
 4. Prints the kernels' line, latencies, the card's name and power limit,
    and last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
    without that line.  ``--report PATH`` also writes every measurement
@@ -715,6 +735,177 @@ def replicate_phase(zero_counts, read_counts):
     return out
 
 
+# The sampler's time a sample at the shipped widths and sparsity, PERF.md's
+# kernel table (PR 3 review round): K2 23.9 ms and K3 at bunch 8 8.7 ms a
+# 50-frame block of 8,000 samples.  The microbench must land within 20%.
+MICROBENCH_US_PER_SAMPLE = {"sparse-f32": 23.9e3 / 8000,
+                            "bunch8-sparse": 8.7e3 / 8000}
+# The JAX package's gates of the out-of-family eval
+# (tests/test_exteval_hnm.py:106-108).
+EXTEVAL_GATES = dict(keyword_id=0.75, cd_db=12.4, margin_median=0.08)
+
+
+def tools_phase(zero_counts, read_counts):
+    """The last JAX tools' ports at full width on the card, the kernels'
+    counts zeroed before and read after: the two-register HNM eval through
+    vocoder_speech.npz (the JAX gates), the xiph import fixture at the
+    released widths through the A/B harness against the DSP rendering of
+    its features (K2, D1), the sampler microbench (K2, K3 at bunch 8), the
+    bucket sweep measured on the deployed decoder, and the graft entry's
+    forward and its seven-step dry run on a world-1 NCCL group (K3 at bunch
+    2)."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_bucket_sweep
+    import torch_make_import_fixture as fixture
+    import torch_sampler_microbench
+    import torch_vocoder_ab
+
+    from dss_tpu_torch import graft_entry
+    from dss_tpu_torch.eval import score_exteval
+    from dss_tpu_torch.vocoder.lpcnet import LPCNet
+
+    out = {}
+    t_phase = time.perf_counter()
+    zero_counts()
+    seen = read_counts()
+
+    def count(name):
+        """The launches since the last item, by kernel."""
+        nonlocal seen
+        now = read_counts()
+        out[name]["launches"] = {k: now[k] - seen[k] for k in now}
+        seen = now
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # -- the two-register harmonic-plus-noise eval (EXTEVAL)
+        t0 = time.perf_counter()
+        art = score_exteval.main([
+            "--corpus-dir", str(tmp / "hnm"), "--out", str(tmp / "ext.json"),
+            "--weights", str(ROOT / "weights" / "vocoder_speech.npz"),
+            "--seed", "515151", "--variants", "2", "--temps", "1.0,1.3",
+            "--headline-temp", "1.0", "--device", "cuda"])
+        out["exteval"] = dict(
+            seconds=time.perf_counter() - t0,
+            utterances=art["num_utterances"],
+            keyword_id=art["keyword_id_accuracy"],
+            cd_db=art["cepstral_distance_db_mean"],
+            stoi=art.get("stoi_mean"), margin_min=art.get("margin_min"),
+            margin_median=art.get("margin_median"),
+            per_register=art["per_register"],
+            sweep=art["temperature_sweep"], confusion=art["confusion"])
+        count("exteval")
+        ex = out["exteval"]
+        registers = {r: v["accuracy"] for r, v in ex["per_register"].items()}
+        sweep = [(q["temperature_scale"], q["keyword_id_accuracy"],
+                  q["cepstral_distance_db_mean"]) for q in ex["sweep"]]
+        print(f"exteval (HNM seed 515151, 2 variants x 2 registers, "
+              f"{ex['utterances']} utterances, vocoder_speech.npz, temps 1.0 "
+              f"and 1.3) in {ex['seconds']:.1f} s: keyword ID "
+              f"{ex['keyword_id']} (JAX on a TPU: 20/24), CD {ex['cd_db']} "
+              f"dB, STOI {ex['stoi']}, margin min {ex['margin_min']} median "
+              f"{ex['margin_median']}; accuracy by register {registers}; "
+              f"(temperature, keyword ID, CD) {sweep}; launches "
+              f"{ex['launches']}")
+
+        # -- the import fixture through the A/B harness
+        t0 = time.perf_counter()
+        datasets = fixture.foreign_datasets()
+        f32 = tmp / "feats.f32"
+        feats = fixture.write_feature_file(str(f32), 3.0, device="cuda")
+        ref = LPCNet(backend="dsp", device="cuda").synthesize_frames(feats)
+        ref.astype(np.int16).tofile(tmp / "ref.pcm")
+        ab = torch_vocoder_ab.main(
+            [str(f32), "--rtf", "--ref-pcm", str(tmp / "ref.pcm"), "--out",
+             str(tmp / "ours.wav"), "--device", "cuda"], datasets=datasets)
+        out["vocoder_ab"] = dict(seconds=time.perf_counter() - t0,
+                                 frames=ab["frames"], rtf=ab["rtf"],
+                                 ab=ab["ab"], rms=ab["rms"], peak=ab["peak"])
+        count("vocoder_ab")
+        va = out["vocoder_ab"]
+        print(f"import fixture (released widths: GRU-A 384 dense, GRU-B 16, "
+              f"pitch embedding, inner biases) through torch_vocoder_ab on "
+              f"{va['frames']} frames: {va['rtf']}; A/B against the DSP "
+              f"rendering: {va['ab']}; launches {va['launches']}")
+
+    # -- the sampler microbench at the shipped checkpoint's tile pattern
+    t0 = time.perf_counter()
+    mb = torch_sampler_microbench.main(
+        ["--frames", "100", "--chain", "8", "--reps", "2", "--variants",
+         "sparse-f32,bunch8-sparse", "--weights",
+         str(ROOT / "weights" / "vocoder_speech.npz"), "--device", "cuda"])
+    out["microbench"] = dict(seconds=time.perf_counter() - t0, variants=mb,
+                             perf_md_us_per_sample=MICROBENCH_US_PER_SAMPLE)
+    count("microbench")
+
+    # -- the bucket sweep, measured on the deployed decoder
+    t0 = time.perf_counter()
+    lines = torch_bucket_sweep.main(
+        ["--synthetic", "200", "--measure", "--multiples", "25", "50", "100",
+         "--device", "cuda"])
+    out["bucket_sweep"] = dict(seconds=time.perf_counter() - t0, lines=lines)
+    count("bucket_sweep")
+
+    # -- the graft entry: the forward step, then the dry run at world 1
+    t0 = time.perf_counter()
+    forward, (model, segment) = graft_entry.entry("cuda")
+    pred = forward(model, segment)
+    torch.cuda.synchronize()
+    try:
+        dry = graft_entry.dryrun_multichip(1, device="cuda")
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["graft_entry"] = dict(seconds=time.perf_counter() - t0,
+                              forward_shape=tuple(pred.shape),
+                              forward_finite=bool(torch.isfinite(pred).all()),
+                              backend=backend, dryrun=dry)
+    count("graft_entry")
+    print(f"graft entry: forward {tuple(pred.shape)}; dry run on {backend}: "
+          f"{sorted(dry)}; launches {out['graft_entry']['launches']}")
+
+    out["launches"] = read_counts()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"tools phase: {out['phase_s']:.1f} s; launches {out['launches']}")
+    gates = [
+        ("exteval keyword ID >= 0.75",
+         ex["keyword_id"] >= EXTEVAL_GATES["keyword_id"]),
+        ("exteval CD < 12.4 dB", ex["cd_db"] < EXTEVAL_GATES["cd_db"]),
+        ("exteval margin median >= 0.08",
+         (ex["margin_median"] or 0) >= EXTEVAL_GATES["margin_median"]),
+        ("exteval 24 utterances", ex["utterances"] == 24),
+        ("A/B: K2 launched", va["launches"]["lpcnet_sampler_b1"] > 0),
+        ("A/B: finite CD",
+         bool(np.isfinite(va["ab"]["cepstral_distance_db"]))),
+        ("A/B: 300 frames", va["frames"] == 300),
+        ("graft entry forward [1, 100, 20], finite",
+         out["graft_entry"]["forward_shape"] == (1, 100, 20)
+         and out["graft_entry"]["forward_finite"]),
+        ("dry run: all seven steps on NCCL",
+         backend == "nccl" and {"decoder_loss", "vad_loss", "vocoder_loss",
+                                "serving_pcm_shape", "word_path_shapes",
+                                "graph_shapes", "chunked"} <= set(dry)),
+        ("bucket sweep: a recommendation",
+         "recommended_length_multiple" in lines[-1]),
+        ("phase: K2 launched", out["launches"]["lpcnet_sampler_b1"] > 0),
+        ("phase: K3 launched", out["launches"]["lpcnet_sampler_bunched"] > 0),
+        ("phase: D1 once, the one DSP rendering",
+         out["launches"]["dsp_synthesis"] == 1),
+    ]
+    for name, want in MICROBENCH_US_PER_SAMPLE.items():
+        got = mb[name]["us_per_sample"]
+        gates.append((f"microbench {name}: {got:.3f} us/sample within 20% of "
+                      f"{want:.3f}", abs(got - want) <= 0.2 * want))
+    out["gates"] = {name: bool(ok) for name, ok in gates}
+    failed = [name for name, ok in gates if not ok]
+    if failed:
+        raise AssertionError(f"tools gates failed: {failed}")
+    return out
+
+
 class Phases:
     """Runs each phase, records failures, and lets later phases run."""
 
@@ -1195,7 +1386,7 @@ def main(report_path=None) -> int:
     # ---- D1: the DSP vocoder's sample loop -----------------------------------
     from dss_tpu_torch.ops import dsp_synthesis as d1_mod
     from dss_tpu_torch.ops.dsp_synthesis import DspCarry, dsp_synthesis, \
-        dsp_synthesis_plain
+        dsp_synthesis_host, dsp_synthesis_plain
     from dss_tpu_torch.vocoder import dsp as tdsp
     d1 = report["kernels"]["dsp_synthesis"] = {"cases": {}}
 
@@ -1229,19 +1420,33 @@ def main(report_path=None) -> int:
             t0 = time.perf_counter()
             want, want_out = dsp_synthesis_plain(*inputs, carry)
             plain_s = time.perf_counter() - t0
+            # The loop compiled for the host (what CPU tensors take): the
+            # third of the three, bit for bit with both.
+            dsp_synthesis_host(*inputs, carry)  # builds it
+            t0 = time.perf_counter()
+            host, host_out = dsp_synthesis_host(*inputs, carry)
+            host_s = time.perf_counter() - t0
             exact = torch.equal(pcm.cpu(), want) and all(
                 torch.equal(a.cpu(), b) for a, b in zip(out, want_out))
+            host_exact = torch.equal(host, want) and all(
+                torch.equal(a, b) for a, b in zip(host_out, want_out))
             voiced = float(inputs[3].float().mean())
             d1["cases"][f"B{batch}_T{frames}"] = dict(
-                bit_equal=exact, plain_cpu_s=plain_s, voiced_share=voiced,
+                bit_equal=exact, host_loop_bit_equal=host_exact,
+                plain_cpu_s=plain_s, host_loop_cpu_s=host_s,
+                voiced_share=voiced,
                 periods=[int(inputs[4].min()), int(inputs[4].max())])
             print(f"D1 B={batch} T={frames}: pcm and state bit-equal to the "
-                  f"plain version {exact} (plain loop on the CPU {plain_s:.2f}"
-                  f" s; voiced share {voiced:.2f})")
-            if not exact or pcm.shape != (batch, frames * 160):
-                raise AssertionError(f"D1 B={batch} T={frames}: kernel != "
-                                     f"plain")
+                  f"plain version {exact}, the host loop to both "
+                  f"{host_exact} (plain loop on the CPU {plain_s:.2f} s, the "
+                  f"host loop {host_s * 1e3:.2f} ms; voiced share "
+                  f"{voiced:.2f})")
+            if not exact or not host_exact or \
+                    pcm.shape != (batch, frames * 160):
+                raise AssertionError(f"D1 B={batch} T={frames}: kernel, "
+                                     f"plain and host loop differ")
         d1["plain_ms"] = d1["cases"]["B1_T260"]["plain_cpu_s"] * 1e3
+        d1["host_loop_ms"] = d1["cases"]["B1_T260"]["host_loop_cpu_s"] * 1e3
         d1["max_abs_err"] = 0.0
         # 100 frames in one call equal 50 + 50, through the vocoder.
         g = np.random.default_rng(4)
@@ -1259,8 +1464,8 @@ def main(report_path=None) -> int:
               f"{same}")
         if not same or not bool(whole.abs().max() > 0):
             raise AssertionError("D1: chunked != single-shot")
-    ph.run("D1 DSP sample loop vs plain (B=1 T=260, B=8 T=50, T=1; "
-           "100 == 50 + 50)", d1_check)
+    ph.run("D1 DSP sample loop vs plain and the host loop (B=1 T=260, "
+           "B=8 T=50, T=1; 100 == 50 + 50)", d1_check)
 
     def d1_timing():
         inputs, carry = d1_inputs(1, 260, 260)
@@ -2362,17 +2567,18 @@ def main(report_path=None) -> int:
                 raise AssertionError("the card-trained checkpoint is not on "
                                      "the kernel's sparse path")
 
-            # -- the app at bunch 8: teacher-forced, then free-running; the
-            # ramp reaches 0.2 in the first epoch; one scoring (K3)
+            # -- the app at bunch 8: one teacher-forced epoch, in which the
+            # ramp reaches 0.2; one scoring (K3).  Its free-running step is
+            # timed below (stage b8_freerun).
             out8 = base / "b8"
-            log8 = run_app("train_vocoder_b8", [
-                str(wav_dir), str(out8), "--bunch", "8", "--epochs", "2",
-                "--freerun-after", "1", "--density", "0.2", "--val-wav",
-                str(val_dir), "--score-every", "2", "--val-max-wavs", "2",
-                "--device", "cuda"], steps * 2)
+            b8_flags = [str(wav_dir), str(out8), "--bunch", "8", "--density",
+                        "0.2", "--val-wav", str(val_dir), "--score-every",
+                        "1", "--val-max-wavs", "2", "--device", "cuda"]
+            log8 = run_app("train_vocoder_b8", b8_flags + ["--epochs", "1"],
+                           steps)
             k3 = report["main_path"]["train_vocoder_b8"]["launches"][
                 "lpcnet_sampler_bunched"]
-            if k3 == 0 or "Epoch 002: new best" not in log8 or \
+            if k3 == 0 or "Epoch 001: new best" not in log8 or \
                     not (out8 / "vocoder_best.npz").exists():
                 raise AssertionError(f"bunch 8: K3 {k3} launches:\n{log8}")
 
@@ -2437,15 +2643,17 @@ def main(report_path=None) -> int:
                     and np.mean(losses[-5:]) < np.mean(losses[:5])):
                 raise AssertionError(f"the CE did not fall: {losses}")
 
-            # -- --resume of the bunch-1 run for one more epoch
+            # -- --resume of the bunch-8 run for one more (teacher-forced)
+            # epoch; a resumed free-running epoch of the bunch-1 run cost
+            # ~50 s of the script's time limit
             zero_counts()
-            hist = voc_app.main(b1_flags + ["--epochs", "5", "--resume"])
-            blob = torch.load(out1 / "train_state.pth", map_location="cpu")
+            hist = voc_app.main(b8_flags + ["--epochs", "2", "--resume"])
+            blob = torch.load(out8 / "train_state.pth", map_location="cpu")
             vt["resume"] = dict(epoch_losses=hist, epoch=blob["extra"]["epoch"],
                                 launches=read_counts())
             print(f"--resume: {len(hist)} epoch, losses {hist}, epoch counter "
                   f"{blob['extra']['epoch']}")
-            if len(hist) != 1 or blob["extra"]["epoch"] != 5 or \
+            if len(hist) != 1 or blob["extra"]["epoch"] != 2 or \
                     not np.all(np.isfinite(hist)):
                 raise AssertionError("--resume did not continue the run")
 
@@ -3115,6 +3323,12 @@ def main(report_path=None) -> int:
            "dataset at the reference's epochs; closed-loop and keyword "
            "scoring)", replicate)
 
+    # ---- the last JAX tools' ports ------------------------------------------
+    def tools():
+        report["tools"] = tools_phase(zero_counts, read_counts)
+    ph.run("tools (exteval, import fixture + A/B, sampler microbench, "
+           "bucket sweep, graft entry and its dry run)", tools)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3177,6 +3391,7 @@ def main(report_path=None) -> int:
     runs.update({k: v["launches"] for k, v in so.items()
                  if k.startswith(("scaleout_", "serve_multichip_"))})
     runs["replicate"] = report["replicate"]["launches"]
+    runs["tools"] = report["tools"]["launches"]
     runs["replicate_retrained"] = report["replicate"]["retrained"]["launches"]
     kernels = []
     for name, (route, src, replaces) in meta.items():

@@ -25,8 +25,12 @@ the 16 products are independent and summed as a fixed pairwise tree
 ``__fmul_rn`` / ``__fadd_rn`` so that nvcc contracts nothing into an FMA.
 So the two agree bit for bit, pcm and state, on the card and on the CPU.
 
-CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-version.
+CUDA tensors launch the kernel (or raise).  CPU tensors take the same
+loop compiled for the host (csrc/dsp_synthesis_host.cpp, built with the host
+compiler at first use, ``dsp_synthesis_host``): bit for bit with both, and
+called through ctypes, which releases the interpreter lock, so the training
+path's synthesis queue does not stall its training thread.  It raises where
+it cannot be built; nothing falls back to the plain loop.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import _cuda
+from . import _cuda, _host
 
 FRAME = 160      # samples a frame (kFrame in the source)
 ORDER = 16       # LPC taps (kOrder in the source)
@@ -60,6 +64,19 @@ def _tree_sum(p: np.ndarray) -> np.ndarray:
     return p[..., 0]
 
 
+def _loop_inputs(lpc, gain, v_mix, voiced, period, noise):
+    """The frame constants and excitations of the sample loop as float32 /
+    int32 numpy arrays on the host: lpc [B, T, 16], amp (v_mix * pulse
+    height, 0 where unvoiced), gain and period [B, T], and the two noise
+    terms (1 - v_mix) * n and (v_mix * 0.25) * n [B, T, 160]."""
+    amp = torch.where(voiced, v_mix * torch.sqrt(period.to(torch.float32)),
+                      torch.zeros_like(v_mix))
+    excite_a = (1.0 - v_mix)[..., None] * noise
+    excite_b = (v_mix * 0.25)[..., None] * noise
+    return tuple(np.ascontiguousarray(t.cpu().numpy()) for t in
+                 (lpc, amp, gain, period, excite_a, excite_b))
+
+
 def dsp_synthesis_plain(lpc: torch.Tensor, gain: torch.Tensor,
                         v_mix: torch.Tensor, voiced: torch.Tensor,
                         period: torch.Tensor, noise: torch.Tensor,
@@ -72,12 +89,8 @@ def dsp_synthesis_plain(lpc: torch.Tensor, gain: torch.Tensor,
     dev = gain.device
     if T == 0:
         return torch.zeros((B, 0), device=dev), carry
-    amp = torch.where(voiced, v_mix * torch.sqrt(period.to(torch.float32)),
-                      torch.zeros_like(v_mix))               # v_mix * pulse
-    excite_a = ((1.0 - v_mix)[..., None] * noise).cpu().numpy()  # [B, T, 160]
-    excite_b = ((v_mix * 0.25)[..., None] * noise).cpu().numpy()
-    lpc, amp, gain, period = (t.cpu().numpy() for t in (lpc, amp, gain,
-                                                        period))
+    lpc, amp, gain, period, excite_a, excite_b = _loop_inputs(
+        lpc, gain, v_mix, voiced, period, noise)
     sig_mem, phase, y = (t.cpu().numpy() for t in carry)
     zero = np.zeros_like(amp[:, 0])
     preemph = np.float32(PREEMPH)
@@ -99,6 +112,39 @@ def dsp_synthesis_plain(lpc: torch.Tensor, gain: torch.Tensor,
                            for a in (sig_mem, phase.astype(np.int32), y)))
 
 
+def dsp_synthesis_host(lpc: torch.Tensor, gain: torch.Tensor,
+                       v_mix: torch.Tensor, voiced: torch.Tensor,
+                       period: torch.Tensor, noise: torch.Tensor,
+                       carry: DspCarry):
+    """The sample loop compiled for the host (csrc/dsp_synthesis_host.cpp),
+    on CPU tensors; the arguments and results of ``dsp_synthesis_plain``,
+    bit for bit.  Raises if the host compiler is missing or the build
+    fails.  Counts its calls in ``dsp_synthesis_host.launches``."""
+    _check(lpc, gain, v_mix, voiced, period, noise, carry)
+    if gain.device.type != "cpu":
+        raise TypeError(f"dsp_synthesis_host: needs CPU tensors, got "
+                        f"{gain.device}")
+    B, T = gain.shape
+    if T == 0:
+        return torch.zeros((B, 0)), DspCarry(*(t.clone() for t in carry))
+    lpc, amp, gain, period, excite_a, excite_b = _loop_inputs(
+        lpc, gain, v_mix, voiced, period, noise)
+    sig_mem, phase, y = (np.array(t.numpy(), copy=True, order="C")
+                         for t in carry)
+    pcm = np.empty((B, T * FRAME), np.float32)
+    rc = _host.library().dss_dsp_synthesis_host(
+        *(a.ctypes.data for a in (lpc, amp, gain, period, excite_a, excite_b,
+                                  sig_mem, phase, y, pcm)), B, T)
+    if rc != 0:
+        raise RuntimeError(f"dss_dsp_synthesis_host returned {rc}")
+    dsp_synthesis_host.launches += 1
+    return torch.from_numpy(pcm), DspCarry(*(torch.from_numpy(a) for a in
+                                             (sig_mem, phase, y)))
+
+
+dsp_synthesis_host.launches = 0
+
+
 @lru_cache(maxsize=256)
 def _check_shapes(lpc, gain, v_mix, voiced, period, noise, sig_mem, phase,
                   deemph):
@@ -116,14 +162,8 @@ def _check_shapes(lpc, gain, v_mix, voiced, period, noise, sig_mem, phase,
                              f"got {list(got)}")
 
 
-def dsp_synthesis(lpc: torch.Tensor, gain: torch.Tensor, v_mix: torch.Tensor,
-                  voiced: torch.Tensor, period: torch.Tensor,
-                  noise: torch.Tensor, carry: DspCarry):
-    """The DSP vocoder's sample loop over B streams and T frames.
-
-    lpc [B, T, 16], gain / v_mix [B, T] f32, voiced [B, T] bool, period
-    [B, T] int32, noise [B, T, 160] f32 and the carry ``DspCarry``.
-    Returns (pcm [B, T*160] f32 clipped to [-1, 1], new carry)."""
+def _check(lpc, gain, v_mix, voiced, period, noise, carry) -> None:
+    """Raises on shapes, types or devices that the loops do not take."""
     sig_mem, phase, deemph = carry
     _check_shapes(lpc.shape, gain.shape, v_mix.shape, voiced.shape,
                   period.shape, noise.shape, sig_mem.shape, phase.shape,
@@ -138,9 +178,21 @@ def dsp_synthesis(lpc: torch.Tensor, gain: torch.Tensor, v_mix: torch.Tensor,
     tensors = floats + (voiced, period, phase)
     if any(t.device != gain.device for t in tensors):
         raise ValueError("dsp_synthesis: tensors on more than one device")
+
+
+def dsp_synthesis(lpc: torch.Tensor, gain: torch.Tensor, v_mix: torch.Tensor,
+                  voiced: torch.Tensor, period: torch.Tensor,
+                  noise: torch.Tensor, carry: DspCarry):
+    """The DSP vocoder's sample loop over B streams and T frames.
+
+    lpc [B, T, 16], gain / v_mix [B, T] f32, voiced [B, T] bool, period
+    [B, T] int32, noise [B, T, 160] f32 and the carry ``DspCarry``.
+    Returns (pcm [B, T*160] f32 clipped to [-1, 1], new carry)."""
+    _check(lpc, gain, v_mix, voiced, period, noise, carry)
+    sig_mem, phase, deemph = carry
     if gain.device.type == "cpu":
-        return dsp_synthesis_plain(lpc, gain, v_mix, voiced, period, noise,
-                                   carry)
+        return dsp_synthesis_host(lpc, gain, v_mix, voiced, period, noise,
+                                  carry)
     if gain.device.type != "cuda":
         raise TypeError(f"dsp_synthesis: needs a CUDA or CPU tensor, got "
                         f"{gain.device}")

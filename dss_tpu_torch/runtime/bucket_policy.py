@@ -14,6 +14,7 @@ compile there), so both packages pick the same buckets from the same labs.
 
 from __future__ import annotations
 
+import math
 from collections import Counter
 from typing import List, Sequence, Tuple
 
@@ -32,6 +33,15 @@ def load_lab_lengths(paths: Sequence[str]) -> np.ndarray:
                 if len(parts) == 3 and parts[2].endswith("frames"):
                     lengths.append(int(parts[2].split()[0]))
     return np.asarray(lengths, np.int64)
+
+
+def synthetic_lengths(n: int, mean_s: float = 1.6, sigma: float = 0.5,
+                      seed: int = 0) -> np.ndarray:
+    """Lognormal segment durations (seconds -> 100 fps frames), matching the
+    shape of single-word utterance distributions."""
+    rng = np.random.default_rng(seed)
+    dur = rng.lognormal(mean=math.log(mean_s), sigma=sigma, size=n)
+    return np.maximum((dur * 100).astype(np.int64), 10)
 
 
 def score_multiple(lengths: np.ndarray, mult: int, compile_cost_s: float,

@@ -40,8 +40,9 @@ is refused, because the reset-before recurrence has another candidate state.
 Each direction is split at the file: ``params_from_datasets`` and
 ``native_params_from_datasets`` hold the map from a file's datasets (a dict
 of arrays keyed by their path in the file), ``datasets_from_params`` the map
-back; ``import_lpcnet_h5``, ``reimport_native_h5`` and ``export_lpcnet_h5``
-read or write the file around them.  h5py is imported only there, so the
+back; ``read_datasets``, ``write_datasets``, ``import_lpcnet_h5``,
+``reimport_native_h5`` and ``export_lpcnet_h5`` read or write the file
+around them.  h5py is imported only there, so the
 map runs where h5py is not installed.
 """
 
@@ -286,14 +287,20 @@ def datasets_from_params(params) -> Datasets:
     return out
 
 
+def write_datasets(datasets: Datasets, path: str) -> None:
+    """Write datasets keyed by their path into an .h5 file (the inverse of
+    ``read_datasets``)."""
+    h5py = _h5py()
+    with h5py.File(path, "w") as f:
+        for name, arr in datasets.items():
+            f.create_dataset(name, data=arr)
+
+
 def export_lpcnet_h5(params, path: str) -> None:
     """Write params into the xiph Keras layout (a weights-only file); exact
     round trip through ``reimport_native_h5``, and through
     ``import_lpcnet_h5`` for upstream-shaped params."""
-    h5py = _h5py()
-    with h5py.File(path, "w") as f:
-        for name, arr in datasets_from_params(params).items():
-            f.create_dataset(name, data=arr)
+    write_datasets(datasets_from_params(params), path)
 
 
 def native_params_from_datasets(datasets: Datasets

@@ -11,9 +11,9 @@ against the JAX package on the CPU.
 * ``LPCNet`` / ``BatchedLPCNet`` / ``LPCVocoder`` with ``backend="dsp"``
   and ``apps/synthesize.py``'s default backend.
 
-On the CPU the sample loop runs its plain version (the kernel's bit-exact
-twin, ops/dsp_synthesis.py); the card tests in tests/test_torch_cuda.py
-hold the kernel against it.
+On the CPU the sample loop runs compiled for the host (bit for bit with
+the plain version, the kernel's twin: tests/test_torch_dsp_host.py); the
+card tests in tests/test_torch_cuda.py hold the kernel against it.
 """
 
 import jax

@@ -449,13 +449,17 @@ def test_shipped_ini_graph_writes_the_jax_logs(tmp_path, monkeypatch):
             self.CONNECTOR.apply_settings(tunits.PacketReplaySettings(
                 data=raw, fs=1000))
 
-    plain_calls = []
+    host_calls = []
+    library = tdsp_ops._host.library
 
-    def counted(*args):
-        plain_calls.append(args[1].shape)
-        return plain(*args)
-    plain = tdsp_ops.dsp_synthesis_plain
-    monkeypatch.setattr(tdsp_ops, "dsp_synthesis_plain", counted)
+    class Counted:
+        """The host library, recording (B, T) of each sample-loop call."""
+
+        def dss_dsp_synthesis_host(self, *args):
+            host_calls.append(tuple(args[-2:]))
+            return library().dss_dsp_synthesis_host(*args)
+    monkeypatch.setattr(tdsp_ops._host, "library", Counted)
+    host_launches = tdsp_ops.dsp_synthesis_host.launches
     system = Replayed(s)
     with open(tmp_path / "audio.pcm", "w") as fd, \
             contextlib.redirect_stdout(fd):
@@ -495,6 +499,8 @@ def test_shipped_ini_graph_writes_the_jax_logs(tmp_path, monkeypatch):
                                            "total"]
     assert isinstance(system.SPEECH_FILTER, tunits.FilterSpeechSegments)
     assert "FUSED_FRONTEND" not in vars(system)
-    # The vocoder ran the sample loop's plain version once, for the word
-    # (padded to a multiple of 10 frames); the unit warmed nothing for dsp.
-    assert plain_calls == [(1, -(-n // 10) * 10)]
+    # The vocoder ran the sample loop compiled for the host once, for the
+    # word (padded to a multiple of 10 frames); the unit warmed nothing for
+    # dsp.
+    assert host_calls == [(1, -(-n // 10) * 10)]
+    assert tdsp_ops.dsp_synthesis_host.launches == host_launches + 1

@@ -197,3 +197,10 @@ def serve_world(rank, voc_w, lengths):
             unit.run_worker()
         unit.shutdown()
     return out
+
+
+# -- tests/test_torch_graft_entry.py ------------------------------------------
+def graft_dryrun(rank, n):
+    """``graft_entry.dryrun_multichip(n)`` on one rank of a gloo world."""
+    from dss_tpu_torch.graft_entry import dryrun_multichip
+    return dryrun_multichip(n, device="cpu")
