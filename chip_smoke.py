@@ -30,15 +30,21 @@
    Through the kernel a 100-frame call must equal two 50-frame calls bit
    for bit, at bunch 1 and bunch 8.  A sampler's bound counts the gathered
    tables at the distinct rows the block's data reads.
-   The DSP vocoder's sample loop (D1: ``dsp_synthesis``, no TPU kernel
-   behind it) on seeded features with voiced and unvoiced frames and
-   periods 32-256, at one stream x 260 frames (a word), eight x 50 and one
-   x 1, against its plain version run on the CPU: pcm and carried state bit
-   for bit, and the same loop compiled for the host
-   (``dsp_synthesis_host``, what CPU tensors take) bit for bit with both;
-   through the vocoder 100 frames must equal 50 + 50 bit for bit;
-   timed per 260-frame word by torch.profiler and events beside an empty
-   launch, with its bound and the serial chain's estimate.
+   The DSP vocoder's whole call (D1, no TPU kernel behind it: frame
+   parameters, noise and the frame-parallel sample loop in one launch) on
+   seeded features with voiced and unvoiced frames and periods 32-256, at
+   one stream x 260 frames (a word), eight x 50, one x 1 and one x 3600
+   (a synthesis-queue job): ``dsp_synthesis`` (given parameters) bit for
+   bit with its plain version ``dsp_synthesis_blocked_plain`` run on the
+   CPU, pcm and carried state, and within the JAX parity tolerance (PCM
+   atol 1e-5, int16 1 LSB, phase exact, state atol 1e-5) of the serial
+   loop compiled for the host (``dsp_synthesis_host``); ``dsp_vocode``
+   (features) one launch a call, its prologue's parameters and noise bit
+   for bit with the eager ``frame_parameters`` and ``gaussian_noise`` on
+   the card and its pcm with the blocked plain version on them; through
+   the vocoder 100 frames must equal 50 + 50 bit for bit; timed at the
+   three shapes by torch.profiler and events beside an empty launch, with
+   its bound and the new design's chain estimate.
 3. Drives the port's online word path twice, with the shipped
    weights/vocoder_speech.npz (bunch 1, K2) and with
    weights/vocoder_speech_b8.npz (bunch 8, K3): a 16 s, 129-channel
@@ -61,8 +67,8 @@
    source and its real loggers and stdout sink: three segments, each
    word's wav and the stdout PCM frames x 160 int16 samples, the
    front-end kernel launched once per packet call plus its warm-up calls,
-   D1 once per word, and neither the eager cascade nor D1's plain loop on
-   a CUDA tensor.
+   D1 once per word through ``dsp_vocode``, and neither the eager cascade,
+   the eager Levinson nor D1's plain versions on a CUDA tensor.
    Then the offline entries: dss_tpu_torch.apps.synthesize on a seeded
    [300, 20] feature file with the b4 checkpoint and with its default
    dsp backend (wavs of 48000 int16 samples), and BatchedLPCNet(batch=8).
@@ -946,6 +952,7 @@ def main(report_path=None) -> int:
         sampler_frames_bunched_plain, sampler_frames_plain, \
         tile_sparse_pattern
     from dss_tpu_torch.vocoder import net as tnet
+    from dss_tpu_torch.vocoder import lpc as lpc_mod
     from dss_tpu_torch.vocoder.lpc import bands_from_cepstrum, lpc_from_bands
     from dss_tpu_torch.vocoder.lpcnet import _load_params
     from dss_tpu_torch.utils.profiling import device_trace, trace_files, \
@@ -1383,17 +1390,17 @@ def main(report_path=None) -> int:
               f"packet (host clock), {ms:.2f} ms (events)")
     ph.run("IIR cascade per packet", iir)
 
-    # ---- D1: the DSP vocoder's sample loop -----------------------------------
+    # ---- D1: the DSP vocoder's whole call ------------------------------------
     from dss_tpu_torch.ops import dsp_synthesis as d1_mod
     from dss_tpu_torch.ops.dsp_synthesis import DspCarry, dsp_synthesis, \
-        dsp_synthesis_host, dsp_synthesis_plain
+        dsp_synthesis_blocked_plain, dsp_synthesis_host, dsp_vocode
     from dss_tpu_torch.vocoder import dsp as tdsp
     d1 = report["kernels"]["dsp_synthesis"] = {"cases": {}}
 
     def d1_inputs(batch, frames, seed):
-        """Seeded sample-loop inputs on the CPU: features with voiced and
-        unvoiced frames and periods 32-256 through the frame-rate part,
-        Gaussian noise and a nonzero carried state."""
+        """Seeded inputs on the CPU: features with voiced and unvoiced frames
+        and periods 32-256, their frame-rate part, Gaussian noise and a
+        nonzero carried state."""
         rng = np.random.default_rng(seed)
         feats = rng.normal(size=(batch, frames, 20)).astype(np.float32) * .3
         feats[..., 0] -= 2.0
@@ -1401,7 +1408,8 @@ def main(report_path=None) -> int:
         feats[..., 19] = np.where(rng.random((batch, frames)) < 0.6,
                                   rng.uniform(0.0, 0.5, (batch, frames)),
                                   rng.uniform(-0.5, -0.2, (batch, frames)))
-        params = tdsp.frame_parameters(torch.as_tensor(feats))
+        feats = torch.as_tensor(feats)
+        params = tdsp.frame_parameters(feats)
         noise = torch.as_tensor(rng.normal(size=(batch, frames, 160))
                                 .astype(np.float32))
         carry = DspCarry(
@@ -1409,50 +1417,104 @@ def main(report_path=None) -> int:
             * 0.1,
             torch.as_tensor(rng.integers(-3, 200, batch).astype(np.int32)),
             torch.as_tensor(rng.normal(size=batch).astype(np.float32)) * 0.1)
-        return (*params, noise), carry
+        return feats, (*params, noise), carry
+
+    def serial_gap(pcm, out, ref, ref_out):
+        """The kernel against the serial loop, in the terms of the JAX
+        parity tolerance (tests/test_torch_dsp.py)."""
+        def to16(x):
+            return np.clip(x.cpu().numpy() * 32767.0, -32768, 32767).astype(
+                np.int16).astype(np.int32)
+        gap = dict(
+            pcm=float((pcm.cpu() - ref).abs().max()),
+            int16=int(np.abs(to16(pcm) - to16(ref)).max()),
+            phase_equal=torch.equal(out.pitch_phase.cpu(),
+                                    ref_out.pitch_phase),
+            sig_mem=float((out.sig_mem.cpu() - ref_out.sig_mem).abs().max()),
+            deemph=float((out.deemph_mem.cpu()
+                          - ref_out.deemph_mem).abs().max()))
+        gap["within"] = bool(gap["pcm"] <= 1e-5 and gap["int16"] <= 1
+                             and gap["phase_equal"] and gap["sig_mem"] <= 1e-5
+                             and gap["deemph"] <= 1e-5)
+        return gap
 
     def d1_check():
-        for batch, frames in ((1, 260), (8, 50), (1, 1)):
-            inputs, carry = d1_inputs(batch, frames, frames)
-            pcm, out = dsp_synthesis(*(t.to(dev) for t in inputs),
-                                     DspCarry(*(t.to(dev) for t in carry)))
+        names = ("lpc", "gain", "v_mix", "voiced", "period", "noise")
+        for batch, frames in ((1, 260), (8, 50), (1, 1), (1, 3600)):
+            feats, inputs, carry = d1_inputs(batch, frames, frames)
+            on_card = DspCarry(*(t.to(dev) for t in carry))
+            n0 = dsp_synthesis.launches
+            pcm, out = dsp_synthesis(*(t.to(dev) for t in inputs), on_card)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want, want_out = dsp_synthesis_plain(*inputs, carry)
-            plain_s = time.perf_counter() - t0
-            # The loop compiled for the host (what CPU tensors take): the
-            # third of the three, bit for bit with both.
-            dsp_synthesis_host(*inputs, carry)  # builds it
+            launches = dsp_synthesis.launches - n0
+            # The serial reference: the loop compiled for the host (bit for
+            # bit with the numpy loop, tests/test_torch_dsp_host.py); the
+            # first call builds and loads it.
+            dsp_synthesis_host(*inputs, carry)
             t0 = time.perf_counter()
             host, host_out = dsp_synthesis_host(*inputs, carry)
             host_s = time.perf_counter() - t0
-            exact = torch.equal(pcm.cpu(), want) and all(
-                torch.equal(a.cpu(), b) for a, b in zip(out, want_out))
-            host_exact = torch.equal(host, want) and all(
-                torch.equal(a, b) for a, b in zip(host_out, want_out))
-            voiced = float(inputs[3].float().mean())
-            d1["cases"][f"B{batch}_T{frames}"] = dict(
-                bit_equal=exact, host_loop_bit_equal=host_exact,
-                plain_cpu_s=plain_s, host_loop_cpu_s=host_s,
-                voiced_share=voiced,
+            case = d1["cases"][f"B{batch}_T{frames}"] = dict(
+                launches=launches, host_loop_cpu_s=host_s,
+                serial_gap=serial_gap(pcm, out, host, host_out),
+                voiced_share=float(inputs[3].float().mean()),
                 periods=[int(inputs[4].min()), int(inputs[4].max())])
-            print(f"D1 B={batch} T={frames}: pcm and state bit-equal to the "
-                  f"plain version {exact}, the host loop to both "
-                  f"{host_exact} (plain loop on the CPU {plain_s:.2f} s, the "
-                  f"host loop {host_s * 1e3:.2f} ms; voiced share "
-                  f"{voiced:.2f})")
-            if not exact or not host_exact or \
-                    pcm.shape != (batch, frames * 160):
-                raise AssertionError(f"D1 B={batch} T={frames}: kernel, "
-                                     f"plain and host loop differ")
+            if frames <= 260:
+                t0 = time.perf_counter()
+                want, want_out = dsp_synthesis_blocked_plain(*inputs, carry)
+                case["plain_cpu_s"] = time.perf_counter() - t0
+                case["bit_equal"] = torch.equal(pcm.cpu(), want) and all(
+                    torch.equal(a.cpu(), b) for a, b in zip(out, want_out))
+                # The prologue: the eager frame-rate part and noise on the
+                # card, then the blocked plain version on what it computed.
+                fd = feats.to(dev)
+                n1 = dsp_vocode.launches
+                pcm2, out2, prm = dsp_vocode(fd, on_card, 7, 1000,
+                                             return_params=True)
+                torch.cuda.synchronize()
+                case["vocode_launches"] = dsp_vocode.launches - n1
+                eager = (*tdsp.frame_parameters(fd),
+                         tdsp.gaussian_noise(7, batch, 1000, frames, dev))
+                case["prologue_max_abs_err"] = {
+                    n: float((a.float() - b.float()).abs().max())
+                    for n, a, b in zip(names, prm, eager)}
+                case["prologue_bit_equal"] = all(
+                    torch.equal(a, b) for a, b in zip(prm, eager))
+                want2, want2_out = dsp_synthesis_blocked_plain(
+                    *(t.cpu() for t in prm), carry)
+                case["vocode_bit_equal"] = torch.equal(
+                    pcm2.cpu(), want2) and all(
+                    torch.equal(a.cpu(), b) for a, b in zip(out2, want2_out))
+            print(f"D1 B={batch} T={frames}: {launches} launch; "
+                  + (f"bit-equal to the blocked plain version "
+                     f"{case['bit_equal']} ({case['plain_cpu_s']:.2f} s on "
+                     f"the CPU); dsp_vocode {case['vocode_launches']} launch, "
+                     f"prologue bit-equal to the eager frame-rate part and "
+                     f"noise {case['prologue_bit_equal']} "
+                     f"{case['prologue_max_abs_err']}, pcm and state "
+                     f"bit-equal to the blocked plain version on them "
+                     f"{case['vocode_bit_equal']}; " if frames <= 260 else "")
+                  + f"against the serial host loop ({host_s * 1e3:.1f} ms): "
+                  f"{case['serial_gap']}")
+            ok = launches == 1 and case["serial_gap"]["within"] \
+                and pcm.shape == (batch, frames * 160)
+            if frames <= 260:
+                ok = ok and case["bit_equal"] and case["vocode_bit_equal"] \
+                    and case["prologue_bit_equal"] \
+                    and case["vocode_launches"] == 1
+            if not ok:
+                raise AssertionError(f"D1 B={batch} T={frames}: {case}")
         d1["plain_ms"] = d1["cases"]["B1_T260"]["plain_cpu_s"] * 1e3
         d1["host_loop_ms"] = d1["cases"]["B1_T260"]["host_loop_cpu_s"] * 1e3
-        d1["max_abs_err"] = 0.0
+        d1["max_abs_err"] = 0.0  # bit for bit with its plain version
+        d1["serial_max_abs_err"] = max(
+            c["serial_gap"]["pcm"] for c in d1["cases"].values())
         # 100 frames in one call equal 50 + 50, through the vocoder.
         g = np.random.default_rng(4)
         feats = torch.as_tensor(g.normal(size=(2, 100, 20)).astype(
             np.float32) * 0.3, device=dev)
         st = tdsp.dsp_vocoder_init(4, 2, dev)
+        n0 = dsp_vocode.launches
         whole, s_whole = tdsp.dsp_synthesize_frames(st, feats)
         p1, s1 = tdsp.dsp_synthesize_frames(st, feats[:, :50])
         p2, s2 = tdsp.dsp_synthesize_frames(s1, feats[:, 50:])
@@ -1461,30 +1523,44 @@ def main(report_path=None) -> int:
             torch.equal(a, b) for a, b in zip(s2[:3], s_whole[:3]))
         d1["chunk_invariance_100_eq_50_50"] = same
         print(f"D1 through the vocoder, 100 frames == 50 + 50 bit for bit: "
-              f"{same}")
-        if not same or not bool(whole.abs().max() > 0):
+              f"{same} ({dsp_vocode.launches - n0} dsp_vocode launches)")
+        if not same or not bool(whole.abs().max() > 0) \
+                or dsp_vocode.launches - n0 != 3:
             raise AssertionError("D1: chunked != single-shot")
-    ph.run("D1 DSP sample loop vs plain and the host loop (B=1 T=260, "
-           "B=8 T=50, T=1; 100 == 50 + 50)", d1_check)
+    ph.run("D1 DSP vocoder vs its plain versions (B=1 T=260, B=8 T=50, "
+           "T=1, T=3600 against the serial loop; 100 == 50 + 50)", d1_check)
 
     def d1_timing():
-        inputs, carry = d1_inputs(1, 260, 260)
-        inputs = tuple(t.to(dev) for t in inputs)
-        carry = DspCarry(*(t.to(dev) for t in carry))
-        run = lambda: dsp_synthesis(*inputs, carry)  # noqa: E731
         clocks = subprocess.Popen(
             ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
              "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
-        dev_ms, records = profiled_ms(run, 20, "dsp_synthesis_kernel")
-        ev_ms = cuda_ms(run, 20)
+        shapes = {}
+        for batch, frames in ((1, 260), (8, 50), (1, 3600)):
+            feats, inputs, carry = d1_inputs(batch, frames, 1)
+            fd = feats.to(dev)
+            cc = DspCarry(*(t.to(dev) for t in carry))
+            run = lambda: dsp_vocode(fd, cc, 0, 0)  # noqa: E731
+            dev_ms, records = profiled_ms(run, 20, "dsp_synthesis_kernel")
+            ev_ms = cuda_ms(run, 20)
+            times = []  # the host's part of a call: enqueue to synchronize
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            shapes[f"B{batch}_T{frames}"] = dict(
+                profiler_ms=dev_ms, profiler_records=records, events_ms=ev_ms,
+                call_ms_p50=pct(times, 50))
         lib = _cuda.library()
         stream = torch.cuda.current_stream().cuda_stream
         empty = lambda: _cuda.check(  # noqa: E731
             lib.dss_empty_launch(1, stream), "empty")
         floor_prof, _ = profiled_ms(empty, 200, "empty_kernel")
         clocks.terminate()
-        # The rest of a word's vocoder call, host clock with a synchronize:
-        # the frame-rate part (pitch, cepstrum -> LPC, gain) and the noise.
+        # What the kernel's prologue took off the path: the eager
+        # frame-rate part and noise of a word on the card (host clock, a
+        # synchronize after each).
         g = np.random.default_rng(9)
         feats = torch.as_tensor(g.normal(size=(1, 260, 20)).astype(
             np.float32) * 0.3, device=dev)
@@ -1499,43 +1575,51 @@ def main(report_path=None) -> int:
                 fn()
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            d1[name] = pct(times, 50)
+            d1["eager_" + name] = pct(times, 50)
         mhz = [int(v) for v in clocks.communicate()[0].split()
                if v.strip().isdigit()]
-        n = 260 * 160
-        # Bytes: each input read once (lpc 64, gain, v_mix, period 4 each,
-        # voiced 1, noise 640 per frame), state in and out, pcm out.
-        nbytes = 260 * (64 + 4 + 4 + 1 + 4 + 640 + 640) + 2 * (64 + 4 + 4)
-        # Operations a sample: 16 products, 15 sums, the excitation's 3
-        # products and 2 sums and the gain, the subtraction, de-emphasis's
-        # product and sum, the clip's two comparisons.
-        flops = n * (16 + 15 + 6 + 1 + 2 + 2)
-        t_b, t_f = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
         clock = (pct(mhz, 50) or H100_BOOST_HZ / 1e6) * 1e6
-        # The serial chain: s depends on the previous s through one product,
-        # four sums of the tree and the subtraction, ~4 clocks each.
-        chain_ms = n * 6 * 4 / clock * 1e3
+        T = 260
+        # Bytes of a word's call: features in (80 a frame), pcm out (640 a
+        # frame), the state in and out.
+        nbytes = T * (80 + 640) + 2 * (64 + 4 + 4)
+        # Operations a frame: the sample loop's ~42 a sample (16 products,
+        # 15 sums, the excitation, the subtraction, de-emphasis, clip); the
+        # frame-rate part's products (DCT 18 x 18, bands 18 x 161, lags 161
+        # x 17, each a product and a sum), Levinson (~2 x 136 + 3 x 16) and
+        # the noise's Box-Muller (~6 a sample).
+        flops = T * (160 * 42 + 2 * (18 * 18 + 18 * 161 + 161 * 17)
+                     + 2 * 136 + 48 + 160 * 6)
+        t_b, t_f = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+        # The new design's chain: phases C and E each run a frame's 160
+        # samples (6 dependent operations a sample), phase D T steps of a
+        # product, a 4-level tree and a sum (6); ~4 clocks an operation.
+        chain_ms = (2 * 160 * 6 + T * 6) * 4 / clock * 1e3
+        word = shapes["B1_T260"]
+        dev_ms = word["profiler_ms"]
         d1.update(
-            profiler_ms=dev_ms, profiler_records=records, events_ms=ev_ms,
-            launch_floor_profiler_ms=floor_prof,
-            ms=dev_ms if dev_ms is not None else ev_ms,
+            shapes=shapes, launch_floor_profiler_ms=floor_prof,
+            ms=dev_ms if dev_ms is not None else word["events_ms"],
             ms_from="profiler" if dev_ms is not None else "events",
-            us_per_sample=(dev_ms or ev_ms) * 1e3 / n,
+            us_per_sample=(dev_ms or word["events_ms"]) * 1e3 / (T * 160),
             bound_ms=max(t_b, t_f) * 1e3,
             bound_by="bytes" if t_b > t_f else "operations", bytes=nbytes,
             flops=flops, chain_estimate_ms=chain_ms,
             sm_clock_mhz=dict(min=min(mhz, default=None), median=pct(mhz, 50),
                               max=max(mhz, default=None)))
-        print(f"D1 per 260-frame word (41,600 samples, one stream): profiler "
-              f"{dev_ms} ms over {records} records, events {ev_ms:.4f} ms "
-              f"({d1['us_per_sample'] * 1e3:.1f} ns a sample); empty launch "
-              f"{floor_prof} ms; plain loop (CPU) {d1['plain_ms']:.0f} ms; "
-              f"bound {d1['bound_ms']:.2e} ms ({d1['bound_by']}); chain "
-              f"estimate {chain_ms:.3f} ms at {clock / 1e6:.0f} MHz; SM clock "
-              f"{d1['sm_clock_mhz']}; the rest of the word's call (host "
-              f"clock, p50 of 5): frame-rate part {d1['frame_rate_ms']:.2f} "
-              f"ms, noise {d1['noise_ms']:.2f} ms")
-    ph.run("D1 timing per 260-frame word (profiler, events, launch floor)",
+        print("D1 (dsp_vocode, one launch a call): " + "; ".join(
+            f"{k}: profiler {v['profiler_ms']} ms over "
+            f"{v['profiler_records']} records, events {v['events_ms']:.4f} "
+            f"ms, a synchronized call {v['call_ms_p50']:.3f} ms"
+            for k, v in shapes.items())
+            + f"; empty launch {floor_prof} ms; blocked plain version (CPU) "
+            f"{d1['plain_ms']:.0f} ms a word; bound {d1['bound_ms']:.2e} ms "
+            f"({d1['bound_by']}); chain estimate {chain_ms:.4f} ms at "
+            f"{clock / 1e6:.0f} MHz; SM clock {d1['sm_clock_mhz']}; what the "
+            f"prologue replaced (eager, host clock, p50 of 5): frame-rate "
+            f"part {d1['eager_frame_rate_ms']:.2f} ms, noise "
+            f"{d1['eager_noise_ms']:.2f} ms")
+    ph.run("D1 timing (profiler, events; B=1 T=260, B=8 T=50, B=1 T=3600)",
            d1_timing)
 
     # ---- the main path -----------------------------------------------------
@@ -1831,17 +1915,28 @@ def main(report_path=None) -> int:
                     raise AssertionError("eager cascade on the card")
                 return sosfilt_scan(sos, x, zi)
 
-            def plain_guard(*args):
-                if args[1].is_cuda:
-                    on_card.append("D1 plain loop")
-                    raise AssertionError("D1's plain loop on the card")
-                return dsp_synthesis_plain(*args)
+            # D1's plain versions and the eager Levinson must not run on a
+            # CUDA tensor: the word's vocode call is one dsp_vocode launch.
+            eager = {(d1_mod, "dsp_synthesis_plain"): 1,
+                     (d1_mod, "dsp_synthesis_blocked_plain"): 1,
+                     (lpc_mod, "levinson"): 0}
+            saved = {k: getattr(*k) for k in eager}
+
+            def guarded(target, arg):
+                def guard(*args, **kw):
+                    if args[arg].is_cuda:
+                        on_card.append(target[1])
+                        raise AssertionError(f"{target[1]} on the card")
+                    return saved[target](*args, **kw)
+                return guard
             mods = (hga_mod, filters_mod, flp_mod)
             for m in mods:
                 m.sosfilt_scan = cascade_guard
-            d1_mod.dsp_synthesis_plain = plain_guard
+            for target, arg in eager.items():
+                setattr(*target, guarded(target, arg))
             try:
                 zero_counts()
+                dsp_vocode.launches = 0
                 t0 = time.perf_counter()
                 with open(Path(tmp) / "audio.pcm", "w") as fd, \
                         redirect_stdout(fd):
@@ -1849,10 +1944,12 @@ def main(report_path=None) -> int:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches = read_counts()
+                vocode_launches = dsp_vocode.launches
             finally:
                 for m in mods:
                     m.sosfilt_scan = sosfilt_scan
-                d1_mod.dsp_synthesis_plain = dsp_synthesis_plain
+                for target, fn in saved.items():
+                    setattr(*target, fn)
             run = Path(tmp) / "run"
             rows = (run / "log.vad.lab").read_text().splitlines()
             frames = [int(r.split("\t")[2].split()[0]) for r in rows]
@@ -1878,7 +1975,7 @@ def main(report_path=None) -> int:
             vocode_ms=system.WAVEFORM_GENERATOR.vocode_ms,
             ingest_to_audio_ms=sink.latencies_ms, budget=sink.budget,
             front_end_expected_launches=calls + warm,
-            dsp_expected_launches=len(words))
+            dsp_expected_launches=len(words), dsp_vocode_launches=vocode_launches)
         print(f"shipped config ({key}): fused_frontend={s.fused_frontend} "
               f"fused_decoder={s.fused_decoder} backend={s.vocoder_backend}; "
               f"{len(words)} word(s) of {frames} frames, {wall:.1f} s wall, "
@@ -1909,9 +2006,11 @@ def main(report_path=None) -> int:
             raise AssertionError(
                 f"front-end kernel: {launches['filter_log_power']} launches "
                 f"for {calls} packet calls + {warm} warm-up calls")
-        if launches["dsp_synthesis"] != len(words):
-            raise AssertionError(f"D1: {launches['dsp_synthesis']} launches "
-                                 f"for {len(words)} words")
+        if launches["dsp_synthesis"] != len(words) \
+                or vocode_launches != len(words):
+            raise AssertionError(f"D1: {launches['dsp_synthesis']} launches, "
+                                 f"{vocode_launches} through dsp_vocode, for "
+                                 f"{len(words)} words")
     ph.run("shipped config, run 1 (INI on cuda: FusedFrontendVad -> "
            "RecurrentNeuralDecodingModel -> DelayedLPCNetVocoder(dsp))",
            lambda: shipped("ship_resolved", True))

@@ -104,7 +104,9 @@ def library(defines: Sequence[str] = ()) -> ctypes.CDLL:
                        lib.dss_filter_log_power_one_warp):
                 fn.argtypes = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
                 fn.restype = _I
-            lib.dss_dsp_synthesis.argtypes = [_P] * 13 + [_I] * 2 + [_P]
+            lib.dss_dsp_synthesis.argtypes = (
+                [_P] * 16 + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
+                + [_I] * 3 + [_P])
             lib.dss_dsp_synthesis.restype = _I
             lib.dss_lpc_recursion.argtypes = ([_P] * 8 + [_I] * 4
                                               + [ctypes.c_float, _P])

@@ -8,9 +8,10 @@ framing and the log power are one call of ``filter_log_power`` (one kernel
 launch on the card); any other geometry takes the eager cascade and
 ``log_power_frames``.  The front-end kernel is the cascade at every block
 length: the JAX extractor's ``parallel_filter=True`` (each section as a
-prefix scan in its modal basis, for long offline blocks on the TPU) gives
-the same features, and in torch it ran ~300x slower than the kernel on an
-NVIDIA H100, so the port takes the argument only as False.  The cascade's
+prefix scan in its modal basis, for long offline blocks on the TPU)
+computes the same function, so here the flag is accepted and changes
+nothing (a torch port of the parallel scan ran ~300x slower than the
+kernel on an NVIDIA H100).  The cascade's
 initial state is each filter's own ``sosfilt_zi`` concatenated along the
 section axis — not the ``zi`` of the combined cascade — because the
 reference runs the two filters back to back with independently initialized
@@ -73,10 +74,7 @@ class HighGammaExtractor:
                  pre_transforms: Transforms = None,
                  post_transforms: Transforms = None,
                  device=None, parallel_filter: bool = False):
-        if parallel_filter:
-            raise ValueError("HighGammaExtractor: parallel_filter=True is not "
-                             "ported; the front-end kernel runs blocks of "
-                             "every length")
+        self.parallel_filter = parallel_filter  # the kernel serves both
         self.device = resolve_device(device)
         self.fs = fs
         self.nb_electrodes = nb_electrodes

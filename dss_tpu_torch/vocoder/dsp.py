@@ -7,11 +7,14 @@ weights: the cepstrum gives the envelope and, through Levinson-Durbin, a
 pitch features.  It is the always-available backend, the one
 config/debug_settings.ini ships with.
 
-The frame-rate part (pitch decode, cepstrum -> bands -> LPC, gain and
-voicing) runs batched over all frames and streams in eager PyTorch, with
-each frame's arithmetic independent of the others
-(``lpc_from_cepstrum_framewise``); the sample loop is one call of
-``ops/dsp_synthesis.py::dsp_synthesis`` (kernel D1 on the card).
+On the card a call is one launch of kernel D1
+(``ops/dsp_synthesis.py::dsp_vocode``): its prologue computes the
+frame-rate part (pitch decode, cepstrum -> bands -> LPC, gain and voicing)
+and the noise, and the sample loop runs frame-parallel.  On the CPU the
+frame-rate part runs batched over all frames and streams in eager PyTorch,
+with each frame's arithmetic independent of the others
+(``lpc_from_cepstrum_framewise``), and the sample loop is one call of
+``ops/dsp_synthesis.py::dsp_synthesis`` (the host-compiled serial loop).
 
 Noise.  The JAX package draws it from its PRNG (``jax.random.split`` per
 frame), which has no torch counterpart.  Here a frame's 160 Gaussian values
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.dsp_synthesis import DspCarry, dsp_synthesis
+from ..ops.dsp_synthesis import DspCarry, dsp_synthesis, dsp_vocode
 from .features import pitch_feature_decode
 from .lpc import FRAME_SIZE, LPC_ORDER, NB_BANDS, WINDOW_SIZE, \
     lpc_from_cepstrum_framewise
@@ -114,13 +117,17 @@ def dsp_synthesize_frames(state: DspVocoderState, features: torch.Tensor,
     single = features.dim() == 2
     feats = features[None] if single else features
     B, T = feats.shape[:2]
-    if noise is None:
-        noise = gaussian_noise(state.seed, B, state.frame_ctr, T, feats.device)
-    elif single:
-        noise = noise[None]
-    pcm, carry = dsp_synthesis(
-        *frame_parameters(feats), noise.to(torch.float32),
-        DspCarry(state.sig_mem, state.pitch_phase, state.deemph_mem))
+    if noise is not None:
+        noise = (noise[None] if single else noise).to(torch.float32)
+    carry = DspCarry(state.sig_mem, state.pitch_phase, state.deemph_mem)
+    if feats.is_cuda:
+        pcm, carry = dsp_vocode(feats.to(torch.float32), carry, state.seed,
+                                state.frame_ctr, noise)
+    else:
+        if noise is None:
+            noise = gaussian_noise(state.seed, B, state.frame_ctr, T,
+                                   feats.device)
+        pcm, carry = dsp_synthesis(*frame_parameters(feats), noise, carry)
     new_state = DspVocoderState(*carry, seed=state.seed,
                                 frame_ctr=state.frame_ctr + T)
     return (pcm[0] if single else pcm), new_state

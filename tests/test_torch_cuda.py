@@ -17,7 +17,7 @@ import torch
 
 from dss_tpu_torch.device import resolve_device
 from dss_tpu_torch.ops.dsp_synthesis import DspCarry, dsp_synthesis, \
-    dsp_synthesis_plain
+    dsp_synthesis_blocked_plain, dsp_synthesis_host, dsp_vocode
 from dss_tpu_torch.ops import hga as thga
 from dss_tpu_torch.ops.filter_log_power import filter_log_power, \
     filter_log_power_plain
@@ -29,6 +29,7 @@ from dss_tpu_torch.ops.lpc_recursion import lpc_recursion, \
 from dss_tpu_torch.ops.sampler import kernel_plan, \
     prepare_bunched_sampler_weights, prepare_sampler_weights, sampler_frames, sampler_frames_bunched, \
     sampler_frames_bunched_plain, sampler_frames_plain
+from dss_tpu_torch import vocoder as tvoc
 from dss_tpu_torch.vocoder import dsp as tdsp
 from dss_tpu_torch.vocoder import net as tnet
 from dss_tpu_torch.vocoder.lpc import bands_from_cepstrum, lpc_from_bands
@@ -378,10 +379,9 @@ def test_bunched_chunked_equals_single_shot_on_the_card(dev, bunch):
     assert torch.equal(torch.cat([p1, p2], dim=1), whole)
 
 
-def _d1_inputs(batch, frames, seed):
-    """Seeded inputs of the DSP vocoder's sample loop (D1) on the CPU:
-    features with voiced and unvoiced frames and periods 32-256 through
-    the frame-rate part, Gaussian noise, and a nonzero carried state."""
+def _d1_features(batch, frames, seed):
+    """Seeded vocoder features with voiced and unvoiced frames and periods
+    32-256."""
     rng = np.random.default_rng(seed)
     feats = rng.normal(size=(batch, frames, 20)).astype(np.float32) * 0.3
     feats[..., 0] -= 2.0
@@ -389,7 +389,15 @@ def _d1_inputs(batch, frames, seed):
     feats[..., 19] = np.where(rng.random((batch, frames)) < 0.6,
                               rng.uniform(0.0, 0.5, (batch, frames)),
                               rng.uniform(-0.5, -0.2, (batch, frames)))
-    params = tdsp.frame_parameters(torch.as_tensor(feats))
+    return torch.as_tensor(feats), rng
+
+
+def _d1_inputs(batch, frames, seed):
+    """Seeded inputs of the DSP vocoder's sample loop (D1) on the CPU:
+    ``_d1_features`` through the frame-rate part, Gaussian noise, and a
+    nonzero carried state."""
+    feats, rng = _d1_features(batch, frames, seed)
+    params = tdsp.frame_parameters(feats)
     noise = torch.as_tensor(rng.normal(size=(batch, frames, 160))
                             .astype(np.float32))
     carry = DspCarry(
@@ -402,20 +410,100 @@ def _d1_inputs(batch, frames, seed):
 @pytest.mark.parametrize("batch, frames", [(1, 260), (8, 50), (1, 1),
                                            (3, 7)])
 def test_dsp_synthesis_kernel_matches_plain(dev, batch, frames):
-    """D1 against its plain version (run on the CPU) on the same inputs:
-    pcm, sig_mem, pitch phase and de-emphasis memory bit for bit (both
-    round every operation once, in the same order), one launch."""
+    """D1 against its plain version, the frame-parallel algorithm in
+    float32 torch (``dsp_synthesis_blocked_plain``, run on the CPU), on the
+    same inputs: pcm, sig_mem, pitch phase and de-emphasis memory bit for
+    bit (both round every operation once, in the same order), one
+    launch."""
     inputs, carry = _d1_inputs(batch, frames, frames)
     before = dsp_synthesis.launches
     pcm, out = dsp_synthesis(*(t.to(dev) for t in inputs),
                              DspCarry(*(t.to(dev) for t in carry)))
     torch.cuda.synchronize()
     assert dsp_synthesis.launches == before + 1
-    want, want_out = dsp_synthesis_plain(*inputs, carry)
+    want, want_out = dsp_synthesis_blocked_plain(*inputs, carry)
     assert pcm.shape == (batch, frames * 160)
     assert torch.equal(pcm.cpu(), want)
     for a, b in zip(out, want_out):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("batch, frames", [(1, 260), (8, 50), (1, 3600)])
+def test_dsp_synthesis_kernel_within_tolerance_of_the_serial_loop(
+        dev, batch, frames):
+    """D1 against the serial sample loop (the host-compiled
+    ``dsp_synthesis_host``, bit for bit with ``dsp_synthesis_plain``) at
+    the JAX parity tolerance of tests/test_torch_dsp.py: float PCM atol
+    1e-5, int16 within 1 LSB, pitch phase exact, sig_mem and de-emphasis
+    memory atol 1e-5 (the frame-parallel form sums the entering states in
+    another order)."""
+    inputs, carry = _d1_inputs(batch, frames, 3 + frames)
+    pcm, out = dsp_synthesis(*(t.to(dev) for t in inputs),
+                             DspCarry(*(t.to(dev) for t in carry)))
+    want, want_out = dsp_synthesis_host(*inputs, carry)
+    pcm = pcm.cpu()
+    np.testing.assert_allclose(pcm.numpy(), want.numpy(), atol=1e-5)
+    to16 = lambda x: np.clip(x.numpy() * 32767.0, -32768, 32767).astype(  # noqa: E731
+        np.int16).astype(np.int32)
+    assert np.abs(to16(pcm) - to16(want)).max() <= 1
+    assert torch.equal(out.pitch_phase.cpu(), want_out.pitch_phase)
+    np.testing.assert_allclose(out.sig_mem.cpu().numpy(),
+                               want_out.sig_mem.numpy(), atol=1e-5)
+    np.testing.assert_allclose(out.deemph_mem.cpu().numpy(),
+                               want_out.deemph_mem.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("batch, frames", [(1, 260), (8, 50), (3, 7)])
+def test_dsp_vocode_matches_the_eager_path(dev, batch, frames):
+    """``dsp_vocode``, one launch: its prologue's frame parameters and
+    noise equal the eager ``frame_parameters`` and ``gaussian_noise`` on
+    the card bit for bit (the same float operations in the same order, and
+    torch's powf, logf, cosf and sinf are the same library calls), and its
+    pcm and state equal the blocked plain version on them bit for bit."""
+    feats, rng = _d1_features(batch, frames, 40 + frames)
+    carry = DspCarry(
+        torch.as_tensor(rng.normal(size=(batch, 16)).astype(np.float32)) * .1,
+        torch.as_tensor(rng.integers(-3, 200, batch).astype(np.int32)),
+        torch.zeros(batch))
+    fd = feats.to(dev)
+    before = (dsp_vocode.launches, dsp_synthesis.launches)
+    pcm, out, params = dsp_vocode(fd, DspCarry(*(t.to(dev) for t in carry)),
+                                  11, 5000, return_params=True)
+    torch.cuda.synchronize()
+    assert (dsp_vocode.launches, dsp_synthesis.launches) == (
+        before[0] + 1, before[1] + 1)
+    eager = (*tdsp.frame_parameters(fd),
+             tdsp.gaussian_noise(11, batch, 5000, frames, dev))
+    for a, b in zip(params, eager):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    want, want_out = dsp_synthesis_blocked_plain(*(t.cpu() for t in params),
+                                                 carry)
+    assert torch.equal(pcm.cpu(), want)
+    for a, b in zip(out, want_out):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_dsp_vocoder_call_launches_at_most_three_kernels(dev):
+    """A vocoder call on the card (LPCVocoder, 300 frames; BatchedLPCNet,
+    8 x 50) launches D1 once: the wrappers count one launch and the CUDA
+    profile of the call holds one D1 kernel record (at most three is the
+    bound asked of a call)."""
+    from torch.profiler import ProfilerActivity, profile
+    feats, _ = _d1_features(8, 300, 2)
+    voc = tvoc.LPCVocoder(seed=1, device=dev)
+    batched = tvoc.BatchedLPCNet(batch=8, backend="dsp", seed=1, device=dev)
+    voc.synthesize_frames(feats[0, :10].numpy())  # warm
+    for call in (lambda: voc.synthesize_frames(feats[0].numpy()),
+                 lambda: batched.synthesize_frames(feats[:, :50].numpy())):
+        before = (dsp_synthesis.launches, dsp_vocode.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        assert (dsp_synthesis.launches, dsp_vocode.launches) == (
+            before[0] + 1, before[1] + 1)
+        records = sum(e.count for e in prof.key_averages()
+                      if "dsp_synthesis_kernel" in e.key)
+        assert records == 1
 
 
 def test_dsp_vocoder_chunked_equals_single_shot_on_the_card(dev):

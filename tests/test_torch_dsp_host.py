@@ -2,8 +2,9 @@
 (csrc/dsp_synthesis_host.cpp through ``ops/dsp_synthesis.py::
 dsp_synthesis_host``), which CPU tensors now take:
 
-* bit for bit with the plain numpy loop ``dsp_synthesis_plain`` (the plain
-  version the card's kernel D1 is held to), pcm and carried state, at one
+* bit for bit with the plain numpy loop ``dsp_synthesis_plain`` (the serial
+  reference the card's kernel D1 is held to at the parity tolerance), pcm
+  and carried state, at one
   stream x 260 frames and eight x 50, voiced and unvoiced frames, periods
   32-256, and at T = 0 and T = 1;
 * 100 frames == 50 + 50 through ``vocoder/dsp.py``, bit for bit;

@@ -6,7 +6,8 @@ state.
 
 The port runs the cascade through the front-end kernel at every block
 length (here its plain versions: ``sosfilt_scan`` for the cascade,
-``filter_log_power`` for the features) and refuses ``parallel_filter=True``.
+``filter_log_power`` for the features), with ``parallel_filter=True`` as
+with False.
 These tests hold that the kernel's cascade gives what the JAX package's
 parallel cascade gives, below one of its 512-sample blocks, at a whole
 number of them, and with a remainder: y and zf atol 2e-5 (the JAX
@@ -96,14 +97,26 @@ def test_extractor_matches_jax_parallel_extractor(monkeypatch):
 
 
 def test_parallel_filter_is_refused():
-    """parallel_filter=True raises rather than run another cascade;
-    parallel_filter=False is the default extractor, feature for feature."""
-    with pytest.raises(ValueError, match="parallel_filter"):
-        thga.HighGammaExtractor(fs=FS, nb_electrodes=4, device="cpu",
-                                parallel_filter=True)
-    data = np.random.default_rng(4).normal(size=(600, 4))
-    off = thga.HighGammaExtractor(fs=FS, nb_electrodes=4, device="cpu",
+    """(Named for what it checked before the flag was accepted.)
+    parallel_filter=True runs the front-end kernel's cascade, which is the
+    function JAX's parallel cascade computes: the same features as
+    parallel_filter=False bit for bit, over a first block of 900 samples
+    (above JAX's 256-sample threshold for the parallel path) and a carried
+    second one of 300, and within atol 1e-4 of the JAX extractor with
+    parallel_filter=True; parallel_filter=False is the default extractor,
+    feature for feature."""
+    C = 4
+    data = np.random.default_rng(4).normal(size=(1200, C))
+    on = thga.HighGammaExtractor(fs=FS, nb_electrodes=C, device="cpu",
+                                 parallel_filter=True)
+    off = thga.HighGammaExtractor(fs=FS, nb_electrodes=C, device="cpu",
                                   parallel_filter=False)
-    default = thga.HighGammaExtractor(fs=FS, nb_electrodes=4, device="cpu")
-    np.testing.assert_array_equal(off.extract_features(data),
-                                  default.extract_features(data))
+    default = thga.HighGammaExtractor(fs=FS, nb_electrodes=C, device="cpu")
+    jx = JHGA(fs=FS, nb_electrodes=C, parallel_filter=True)
+    assert on.parallel_filter and not off.parallel_filter
+    for block in (data[:900], data[900:]):
+        got = on.extract_features(block)
+        np.testing.assert_array_equal(got, off.extract_features(block))
+        np.testing.assert_array_equal(got, default.extract_features(block))
+        np.testing.assert_allclose(got, jx.extract_features(block),
+                                   atol=1e-4)
