@@ -30,7 +30,9 @@ LPC / wav log taps and ``latency_budget.json``.
 ingest, so a caller can replay a session in-process (``PacketReplay``)
 through the same units.  ``--profile-dir`` records the whole run as a
 ``torch.profiler`` trace (utils/profiling.py: every thread's CPU ops and,
-on the card, every CUDA kernel) into that directory.
+on the card, every CUDA kernel) into that directory, with the units' host
+spans (utils/tracing.py, switched on for the run) beside them on the
+trace's clock.
 """
 
 from __future__ import annotations
@@ -361,8 +363,9 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default=None,
                         help="Torch device (default: cuda).")
     parser.add_argument("--profile-dir", default=None,
-                        help="Record a torch.profiler trace of the run into "
-                             "this directory (Chrome/TensorBoard trace).")
+                        help="Record a torch.profiler trace of the run, "
+                             "with the units' host spans, into this "
+                             "directory (Chrome/TensorBoard trace).")
     args = parser.parse_args(argv)
     settings = build_settings(args.config, args.run, args.device)
     try:

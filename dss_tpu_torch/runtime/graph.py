@@ -25,6 +25,8 @@ import inspect
 import logging
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+from ..utils import tracing
+
 logger = logging.getLogger("dss_tpu_torch.runtime")
 
 
@@ -257,7 +259,11 @@ class _Router:
 
     async def publish(self, port: BoundStream, message: Any) -> None:
         for q in self.routes.get(port, ()):
-            await q.put(message)
+            if tracing.enabled():
+                # The message's wait on this edge (graph.wait) starts here.
+                await q.put(_Waiting(message, tracing.now()))
+            else:
+                await q.put(message)
             depth = q.qsize()
             if depth >= self._warned_depth.get(id(q), self.QUEUE_WARN_DEPTH):
                 self._warned_depth[id(q)] = depth * 2
@@ -265,6 +271,28 @@ class _Router:
                     f"queue depth {depth} on edge from {port} — consumer "
                     f"is falling behind"
                 )
+
+
+class _Waiting:
+    """A message on an edge while the recorder is on, with its put time."""
+
+    __slots__ = ("message", "start_ns")
+
+    def __init__(self, message: Any, start_ns: int):
+        self.message = message
+        self.start_ns = start_ns
+
+
+def _taken(queue: asyncio.Queue, item: Any, place: int) -> Any:
+    """The message of a queue item; closes its ``graph.wait`` span (key:
+    the message's ``received_at``; ``place``: its place in a coalesced
+    batch; ``edge``: the subscriber's input)."""
+    if type(item) is not _Waiting:
+        return item
+    tracing.record("graph.wait", item.start_ns,
+                   key=getattr(item.message, "received_at", None),
+                   place=place, edge=queue._dss_edge)
+    return item.message
 
 
 async def _run_source(unit: Unit, fn, router: _Router) -> None:
@@ -298,7 +326,7 @@ async def _run_subscriber(unit: Unit, fn, queue: asyncio.Queue,
             # memory (each raw 40 ms packet is ~41 KB).
             peak = depth
             queue._dss_peak = peak
-        message = await queue.get()
+        message = _taken(queue, await queue.get(), 0)
         if message is _SHUTDOWN:
             queue.task_done()
             break
@@ -311,6 +339,7 @@ async def _run_subscriber(unit: Unit, fn, queue: asyncio.Queue,
                 except asyncio.QueueEmpty:
                     break
                 extra += 1
+                nxt = _taken(queue, nxt, len(batch))
                 if nxt is _SHUTDOWN:
                     stop_after = True
                     break
@@ -395,8 +424,9 @@ async def run_system_async(system: System,
     for u in units:
         for stream, fn in handler_map[u]:
             if stream is not None:
-                sub_queues[(id(u), id(stream))] = asyncio.Queue(
-                    maxsize=getattr(stream, "maxsize", 0))
+                q = asyncio.Queue(maxsize=getattr(stream, "maxsize", 0))
+                q._dss_edge = f"{type(u).__name__}.{stream.name}"
+                sub_queues[(id(u), id(stream))] = q
 
     for src, dst in edges:
         key = (id(dst.unit), id(dst.stream))

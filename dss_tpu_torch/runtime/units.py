@@ -50,6 +50,7 @@ from ..models.lstm import seeded_init
 from ..models.torch_port import load_checkpoint
 from ..ops.hga import HighGammaExtractor
 from ..ops.ringbuffer import SpeechSegmentHistory, VoiceActivityDetectionSmoothing
+from ..utils import tracing
 from ..vocoder.dsp import dsp_synthesize_frames, dsp_vocoder_init
 from ..vocoder.lpcnet import LPCNet, _load_params, _sparse_pattern_of
 from ..vocoder.net import COND_BLOCK, FRAME_SIZE, LPCNetModel, \
@@ -284,12 +285,13 @@ def _decode_padded(model, data: np.ndarray, T: int, mult: int, device):
     whose padded tail repeats the last valid frame, so that a vocoder never
     consumes padding garbage)."""
     Tp = -(-T // mult) * mult
-    x = torch.zeros((1, Tp, data.shape[1]))
-    x[0, :T] = torch.as_tensor(np.asarray(data[:T], np.float32))
-    mask = torch.zeros((1, Tp))
-    mask[0, :T] = 1.0
-    pred, _ = model(x.to(device), mask=mask)
-    return pred[:, :T], hold_last_frame(pred, [T])
+    with tracing.span("models.decode", frames=T, padded_frames=Tp):
+        x = torch.zeros((1, Tp, data.shape[1]))
+        x[0, :T] = torch.as_tensor(np.asarray(data[:T], np.float32))
+        mask = torch.zeros((1, Tp))
+        mask[0, :T] = 1.0
+        pred, _ = model(x.to(device), mask=mask)
+        return pred[:, :T], hold_last_frame(pred, [T])
 
 
 # region Fused packet path
@@ -378,15 +380,22 @@ class FusedFrontendVad(Unit):
         packed = torch.cat([feats, labels[:, None].to(feats.dtype)], dim=1)
         return fe_state, vad_state, packed
 
-    def _step(self, data: np.ndarray):
+    def _step(self, data: np.ndarray, key: Optional[float] = None,
+              packets: int = 1):
+        """One packet call over ``packets`` packets (``key``: the earliest
+        one's ``received_at``)."""
         t0 = time.perf_counter()
-        with torch.cuda.stream(self._stream):
-            packet = torch.as_tensor(np.asarray(data, np.float32)).to(
-                self._device)
-            self._fe_state, self._vad_state, packed = self._packet_path(
-                self._fe_state, self._vad_state, packet)
-            packed = packed.cpu().numpy()  # the one device->host read
-        self._t_device_done = time.time()
+        with tracing.span("units.fe_call", key=key, packets=packets), \
+                torch.cuda.stream(self._stream):
+            with tracing.span("units.fe_h2d"):
+                packet = torch.as_tensor(np.asarray(data, np.float32)).to(
+                    self._device)
+            with tracing.span("units.fe_launch"):
+                self._fe_state, self._vad_state, packed = self._packet_path(
+                    self._fe_state, self._vad_state, packet)
+            with tracing.span("units.fe_read"):
+                packed = packed.cpu().numpy()  # the one device->host read
+            self._t_device_done = time.time()
         self.step_ms.append((time.perf_counter() - t0) * 1000.0)
         return packed[:, :-1].astype(np.float64), packed[:, -1].astype(np.int32)
 
@@ -407,7 +416,8 @@ class FusedFrontendVad(Unit):
                     else np.concatenate([m.data for m in chunk], axis=0))
             t_dispatch = time.time()
             feats, labels = await loop.run_in_executor(
-                self._executor, self._step, data)
+                self._executor, self._step, data, msg.received_at, take)
+            t_segment = tracing.now()
             if self._first:
                 k = self._extractor.warmup_frames(data.shape[0])
                 feats, labels = feats[k:], labels[k:]
@@ -430,6 +440,8 @@ class FusedFrontendVad(Unit):
                           ("fe_device_done", self._t_device_done),
                           ("seg_close", time.time())),
                     data=segment, fs=100, previous_frames=previous_frames)
+            tracing.record("units.fe_segment", t_segment, key=msg.received_at,
+                           packets=take)
 # endregion
 
 
@@ -724,35 +736,42 @@ class FusedDecoderVocoder(Unit):
         return (packed[:n].reshape(T, self._model.nb_outputs),
                 packed[n:].view(np.int16))
 
-    def _decode_and_vocode(self, data: np.ndarray):
-        """Single shot: decode and vocode the whole word, one read."""
+    def _decode_and_vocode(self, data: np.ndarray,
+                           key: Optional[float] = None):
+        """Single shot: decode and vocode the whole word, one read
+        (``key``: the word's id)."""
         t0 = time.perf_counter()
         T = len(data)
-        pred, feats = self._padded_features(data, T)
-        bits, self._voc_state = self._vocode(self._voc_state, feats)
-        packed = torch.cat([pred.reshape(-1), bits]).cpu().numpy()
-        self._t_device_done = time.time()
+        with tracing.span("units.word_head", key=key, frames=T):
+            pred, feats = self._padded_features(data, T)
+            bits, self._voc_state = self._vocode(self._voc_state, feats)
+            with tracing.span("units.word_read"):
+                packed = torch.cat([pred.reshape(-1), bits]).cpu().numpy()
+            self._t_device_done = time.time()
         self.word_ms.append((time.perf_counter() - t0) * 1000.0)
         lpc, audio = self._split(packed, T)
         return lpc, audio[: T * FRAME_SIZE]
 
-    def _decode_head(self, data: np.ndarray):
+    def _decode_head(self, data: np.ndarray, key: Optional[float] = None):
         """Chunked word start: decode, vocode the first chunk, and read
         back features + that chunk's audio — the one read on the
         first-audio critical path.  Returns the padded features for the
-        tail chunks."""
+        tail chunks (``key``: the word's id)."""
         t0 = time.perf_counter()
         T = len(data)
-        pred, feats = self._padded_features(data, T)
-        bits, self._voc_state = self._vocode(self._voc_state,
-                                             feats[:, :self._chunk])
-        packed = torch.cat([pred.reshape(-1), bits]).cpu().numpy()
-        self._t_device_done = time.time()
+        with tracing.span("units.word_head", key=key, frames=T):
+            pred, feats = self._padded_features(data, T)
+            bits, self._voc_state = self._vocode(self._voc_state,
+                                                 feats[:, :self._chunk])
+            with tracing.span("units.word_read"):
+                packed = torch.cat([pred.reshape(-1), bits]).cpu().numpy()
+            self._t_device_done = time.time()
         self.word_ms.append((time.perf_counter() - t0) * 1000.0)
         lpc, audio0 = self._split(packed, T)
         return lpc, audio0[: min(T, self._chunk) * FRAME_SIZE], feats, T
 
-    def _tail_chunk(self, feats: torch.Tensor, k: int, T: int) -> np.ndarray:
+    def _tail_chunk(self, feats: torch.Tensor, k: int, T: int,
+                    key: Optional[float] = None) -> np.ndarray:
         """Vocode and read tail chunk ``k``, trimmed to the word's valid
         frames and clamped at zero: a chunk wholly inside the repeat-pad
         is synthesized for state continuity but ships nothing.
@@ -762,10 +781,11 @@ class FusedDecoderVocoder(Unit):
         fills the CUDA launch queue, which blocks the host — and the head's
         read — until the card has drained most of them."""
         c = self._chunk
-        bits, self._voc_state = self._vocode(self._voc_state,
-                                             feats[:, k * c:(k + 1) * c])
-        valid = max(0, min(T - k * c, c))
-        return bits.cpu().numpy().view(np.int16)[: valid * FRAME_SIZE]
+        with tracing.span("units.word_tail", key=key, chunk=k):
+            bits, self._voc_state = self._vocode(
+                self._voc_state, feats[:, k * c:(k + 1) * c])
+            valid = max(0, min(T - k * c, c))
+            return bits.cpu().numpy().view(np.int16)[: valid * FRAME_SIZE]
 
     @subscriber(INPUT)
     @publisher(LPC)
@@ -774,10 +794,11 @@ class FusedDecoderVocoder(Unit):
     async def decode(self, msg: TimeSeriesMessage) -> AsyncGenerator:
         loop = asyncio.get_running_loop()
         data = np.asarray(msg.data, np.float32)
+        word = getattr(msg, "previous_frames", None)
         t_dispatch = time.time()
         if not self._chunked:
             lpc, audio = await loop.run_in_executor(
-                self._executor, self._decode_and_vocode, data)
+                self._executor, self._decode_and_vocode, data, word)
             stamps = (("dv_dispatch", t_dispatch),
                       ("dv_device_done", self._t_device_done))
             yield self.LPC, replace(msg, data=lpc, fs=100)
@@ -787,7 +808,7 @@ class FusedDecoderVocoder(Unit):
             return
 
         lpc, audio0, feats, T = await loop.run_in_executor(
-            self._executor, self._decode_head, data)
+            self._executor, self._decode_head, data, word)
         n_chunks = feats.shape[1] // self._chunk
         stamps = (("dv_dispatch", t_dispatch),
                   ("dv_device_done", self._t_device_done))
@@ -797,7 +818,7 @@ class FusedDecoderVocoder(Unit):
         parts = [audio0]
         for i in range(1, n_chunks):
             audio_k = await loop.run_in_executor(
-                self._executor, self._tail_chunk, feats, i, T)
+                self._executor, self._tail_chunk, feats, i, T, word)
             parts.append(audio_k)
             if len(audio_k) == 0 and i != n_chunks - 1:
                 continue  # all-pad chunk: nothing to ship
@@ -808,8 +829,8 @@ class FusedDecoderVocoder(Unit):
             else:
                 out = _anonymize(msg, data=audio_k, fs=16000)
             yield self.OUTPUT, out
-        word = np.concatenate(parts) if len(parts) > 1 else audio0
-        yield self.WORD, _anonymize(msg, data=word, fs=16000)
+        audio = np.concatenate(parts) if len(parts) > 1 else audio0
+        yield self.WORD, _anonymize(msg, data=audio, fs=16000)
 # endregion
 
 
@@ -1182,11 +1203,14 @@ class RecurrentNeuralDecodingModel(Unit):
     def shutdown(self) -> None:
         self._executor.shutdown(wait=True)
 
-    def _decode(self, data: np.ndarray) -> np.ndarray:
+    def _decode(self, data: np.ndarray,
+                key: Optional[float] = None) -> np.ndarray:
         t0 = time.perf_counter()
-        pred, _ = _decode_padded(self._model, data, len(data),
-                                 self.SETTINGS.length_multiple, self._device)
-        out = pred[0].cpu().numpy()
+        with tracing.span("units.decode", key=key, frames=len(data)):
+            pred, _ = _decode_padded(self._model, data, len(data),
+                                     self.SETTINGS.length_multiple,
+                                     self._device)
+            out = pred[0].cpu().numpy()
         self.decode_ms.append((time.perf_counter() - t0) * 1000.0)
         return out
 
@@ -1196,7 +1220,8 @@ class RecurrentNeuralDecodingModel(Unit):
         t_dispatch = time.time()
         # Off the event loop; one worker keeps segments in order.
         predictions = await asyncio.get_running_loop().run_in_executor(
-            self._executor, self._decode, np.asarray(msg.data, np.float32))
+            self._executor, self._decode, np.asarray(msg.data, np.float32),
+            getattr(msg, "previous_frames", None))
         yield self.OUTPUT, _with_stamps(
             msg, (("dec_dispatch", t_dispatch),
                   ("dec_device_done", time.time())),
@@ -1237,9 +1262,11 @@ class DelayedLPCNetVocoder(Unit):
         self._executor.shutdown(wait=True)
         del self._lpcnet
 
-    def _synthesize(self, features: np.ndarray, T: int) -> np.ndarray:
+    def _synthesize(self, features: np.ndarray, T: int,
+                    key: Optional[float] = None) -> np.ndarray:
         t0 = time.perf_counter()
-        pcm = self._lpcnet.synthesize_frames(features)[: T * FRAME_SIZE]
+        with tracing.span("units.vocode", key=key, frames=T):
+            pcm = self._lpcnet.synthesize_frames(features)[: T * FRAME_SIZE]
         self.vocode_ms.append((time.perf_counter() - t0) * 1000.0)
         return pcm
 
@@ -1255,7 +1282,8 @@ class DelayedLPCNetVocoder(Unit):
                 [features, np.repeat(features[-1:], Tp - T, axis=0)], axis=0)
         t_dispatch = time.time()
         acoustic = await asyncio.get_running_loop().run_in_executor(
-            self._executor, self._synthesize, features, T)
+            self._executor, self._synthesize, features, T,
+            getattr(msg, "previous_frames", None))
         yield self.OUTPUT, _with_stamps(
             msg, (("voc_dispatch", t_dispatch),
                   ("voc_device_done", time.time())),

@@ -1,5 +1,5 @@
-"""Tracing and latency bookkeeping (counterpart of
-dss_tpu/utils/profiling.py).
+"""The device trace (counterpart of dss_tpu/utils/profiling.py's
+``device_trace``).
 
 * ``device_trace(log_dir)`` records a ``torch.profiler`` trace of a region
   and writes it into ``log_dir`` as a Chrome trace (``*.pt.trace.json``,
@@ -7,10 +7,12 @@ dss_tpu/utils/profiling.py).
   records the CPU ops of every thread, not only the caller's: the units run
   their device calls on one-worker executor threads.  On the card it also
   records every CUDA kernel (CUPTI), and a trace that holds none is an
-  error, not a CPU-only trace.
+  error, not a CPU-only trace.  The span recorder (utils/tracing.py) is on
+  for the region, and its spans go into the same trace as ``X`` events of
+  category ``host_span`` on the trace's clock, on their threads' rows.
 * ``trace_summary(path)`` reads such a trace back: the kernels by name, the
-  CPU ops and kernels of each thread, and the device's busy share.
-* ``StageTimer`` accumulates per-stage wall-clock latencies.
+  CPU ops and kernels of each thread, the host spans by name, and the
+  device's busy share.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import tracing
 
 logger = logging.getLogger("dss_tpu_torch.profiling")
 
@@ -41,9 +44,11 @@ _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 @contextlib.contextmanager
 def device_trace(log_dir: str, device=None) -> Iterator[None]:
     """Record a torch.profiler trace of the region into ``log_dir``: the
-    CPU ops of every thread and, on ``cuda`` (the default), the CUDA
-    kernels.  Raises when the card's profiler (CUPTI) is missing, and after
-    the region when the trace holds no CUDA kernel."""
+    CPU ops of every thread, the host spans of the region (the recorder is
+    switched on for it, then off, and drained into the trace) and, on
+    ``cuda`` (the default), the CUDA kernels.  Raises when the card's
+    profiler (CUPTI) is missing, and after the region when the trace holds
+    no CUDA kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device(device)
@@ -56,6 +61,9 @@ def device_trace(log_dir: str, device=None) -> Iterator[None]:
     config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=activities, experimental_config=config)
+    tracing.drain()
+    tracing.enable()
+    anchor = tracing.Anchor()
     prof.start()
     try:
         yield
@@ -63,9 +71,16 @@ def device_trace(log_dir: str, device=None) -> Iterator[None]:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         prof.stop()
+        tracing.disable()
     path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}."
                                  f"{time.time_ns()}.pt.trace.json")
     prof.export_chrome_trace(path)
+    with open(path) as fd:
+        trace = json.load(fd)
+    trace["traceEvents"] += tracing.chrome_events(
+        tracing.drain(), anchor, trace["baseTimeNanoseconds"], os.getpid())
+    with open(path, "w") as fd:
+        json.dump(trace, fd)
     logger.info(f"torch profiler trace written to {path}")
     if dev.type == "cuda" and trace_summary(path)["kernels"] == 0:
         raise RuntimeError(f"device_trace: {path} holds no CUDA kernel "
@@ -99,7 +114,8 @@ def trace_summary(path: str, top: int = 10) -> Dict[str, object]:
     * ``threads``: per CPU thread (the system's id) its CPU op events
       (``cpu_ops``), the kernels it launched (``kernels``, joined to the
       launch call through its correlation id) and their names with counts
-      (``kernel_names``, cut to 100 characters)."""
+      (``kernel_names``, cut to 100 characters);
+    * ``spans``: the host spans (category ``host_span``) by name, counted."""
     with open(path) as fd:
         events = [e for e in json.load(fd)["traceEvents"]
                   if e.get("ph") == "X"]
@@ -128,47 +144,16 @@ def trace_summary(path: str, top: int = 10) -> Dict[str, object]:
         t["kernel_names"][e["name"][:100]] += 1
     busy = _busy_us([(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
                      if e.get("cat") in _DEVICE_CATS])
+    spans: Dict[str, int] = defaultdict(int)
+    for e in events:
+        if e.get("cat") == tracing.SPAN_CATEGORY:
+            spans[e["name"]] += 1
     return dict(
         kernels=len(kernels), span_us=t1 - t0, busy_us=busy,
         busy_share=busy / (t1 - t0) if t1 > t0 else None,
         kernel_us=sum(e.get("dur", 0) for e in kernels),
         by_name=dict(sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]),
         threads={tid: dict(t, kernel_names=dict(t["kernel_names"]))
-                 for tid, t in threads.items()})
+                 for tid, t in threads.items()},
+        spans=dict(spans))
 
-
-class StageTimer:
-    """Accumulates per-stage wall-clock latencies; reports percentiles."""
-
-    def __init__(self):
-        self._samples: Dict[str, List[float]] = defaultdict(list)
-
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._samples[name].append((time.perf_counter() - t0) * 1000.0)
-
-    def record(self, name: str, millis: float) -> None:
-        self._samples[name].append(millis)
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        out = {}
-        for name, xs in self._samples.items():
-            arr = np.asarray(xs)
-            out[name] = {
-                "count": int(arr.size),
-                "p50_ms": float(np.percentile(arr, 50)),
-                "p95_ms": float(np.percentile(arr, 95)),
-                "mean_ms": float(arr.mean()),
-            }
-        return out
-
-    def log_summary(self) -> None:
-        for name, stats in sorted(self.summary().items()):
-            logger.info(
-                f"stage {name}: n={stats['count']} p50={stats['p50_ms']:.2f}ms "
-                f"p95={stats['p95_ms']:.2f}ms"
-            )

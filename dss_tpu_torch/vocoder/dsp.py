@@ -35,6 +35,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.dsp_synthesis import DspCarry, dsp_synthesis, dsp_vocode
+from ..utils import tracing
 from .features import pitch_feature_decode
 from .lpc import FRAME_SIZE, LPC_ORDER, NB_BANDS, WINDOW_SIZE, \
     lpc_from_cepstrum_framewise
@@ -117,17 +118,19 @@ def dsp_synthesize_frames(state: DspVocoderState, features: torch.Tensor,
     single = features.dim() == 2
     feats = features[None] if single else features
     B, T = feats.shape[:2]
-    if noise is not None:
-        noise = (noise[None] if single else noise).to(torch.float32)
-    carry = DspCarry(state.sig_mem, state.pitch_phase, state.deemph_mem)
-    if feats.is_cuda:
-        pcm, carry = dsp_vocode(feats.to(torch.float32), carry, state.seed,
-                                state.frame_ctr, noise)
-    else:
-        if noise is None:
-            noise = gaussian_noise(state.seed, B, state.frame_ctr, T,
-                                   feats.device)
-        pcm, carry = dsp_synthesis(*frame_parameters(feats), noise, carry)
+    with tracing.span("vocoder.dsp", streams=B, frames=T):
+        if noise is not None:
+            noise = (noise[None] if single else noise).to(torch.float32)
+        carry = DspCarry(state.sig_mem, state.pitch_phase, state.deemph_mem)
+        if feats.is_cuda:
+            pcm, carry = dsp_vocode(feats.to(torch.float32), carry,
+                                    state.seed, state.frame_ctr, noise)
+        else:
+            if noise is None:
+                noise = gaussian_noise(state.seed, B, state.frame_ctr, T,
+                                       feats.device)
+            pcm, carry = dsp_synthesis(*frame_parameters(feats), noise,
+                                       carry)
     new_state = DspVocoderState(*carry, seed=state.seed,
                                 frame_ctr=state.frame_ctr + T)
     return (pcm[0] if single else pcm), new_state

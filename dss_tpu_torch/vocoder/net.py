@@ -30,6 +30,7 @@ from ..device import device_constant, resolve_device
 # The module, not its names: ops/sampler.py imports vocoder/mulaw.py, so
 # either of the two may be half-imported when this line runs.
 from ..ops import sampler as _sampler
+from ..utils import tracing
 from .lpc import FRAME_SIZE, LPC_ORDER, NB_BANDS, NB_FEATURES, PREEMPH, \
     bands_from_cepstrum, lpc_from_bands
 from .mulaw import MULAW_LEVELS, mulaw_decode, mulaw_encode
@@ -431,44 +432,51 @@ def net_synthesize_frames(model: LPCNetModel, params: Params,
     noise (tests inject the JAX package's noise); ``sampler_weights`` is
     ``sampler_weights_for(model, params)``, computed here when not given."""
     B, T, _ = features.shape
-    w = sampler_weights if sampler_weights is not None \
-        else sampler_weights_for(model, params)
-    run_sampler = _sampler.sampler_frames_bunched if model.bunch > 1 \
-        else _sampler.sampler_frames
-    block = T if "emb_pitch" in params else COND_BLOCK
-    feats_ctx_all = torch.cat([state.feat_mem, features], dim=1)
-    carry = (state.h_a, state.h_b, state.sig_mem, state.exc_idx)
-    deemph = state.deemph
-    parts = []
-    for s in range(0, T, block):
-        L = min(block, T - s)
-        feats_ctx = feats_ctx_all[:, s:s + FEAT_CONTEXT + L]
-        feats = feats_ctx[:, FEAT_CONTEXT:]
-        cond = model.condition(params, feats_ctx)[:, FEAT_CONTEXT:]
-        lpc, _ = lpc_from_bands(bands_from_cepstrum(feats[..., :NB_BANDS]))
-        if greedy:
-            temp = torch.full((B, L), -1.0, device=features.device)
-            noise = None
-        else:
-            corr = torch.clamp(feats[..., NB_BANDS + 1] + 0.5, 0.0, 1.0)
-            temp = (1.0 + 1.5 * corr) * temperature_scale
-            if quiet_sharpen:
-                quiet = torch.clamp((QUIET_C0 - feats[..., 0]) * QUIET_GAIN,
-                                    min=0.0)
-                temp = temp * (1.0 + quiet)
-            noise = (torch.clamp(gumbel[s:s + L], max=NOISE_CAP)
-                     if gumbel is not None else
-                     gumbel_noise(state.seed, state.frame_ctr + s, L, B,
-                                  features.device, state.slot_lo,
-                                  state.slots))
-        carry, sig = run_sampler(
-            w, carry, cond.transpose(0, 1).contiguous(),
-            lpc.transpose(0, 1).contiguous(),
-            temp.transpose(0, 1).contiguous(), noise, FRAME_SIZE)
-        y = deemphasis(sig, deemph)
-        deemph = y[:, -1]
-        parts.append(torch.clamp(y, -1.0, 1.0))
-    pcm = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    with tracing.span("vocoder.synth", streams=B, frames=T):
+        w = sampler_weights if sampler_weights is not None \
+            else sampler_weights_for(model, params)
+        run_sampler = _sampler.sampler_frames_bunched if model.bunch > 1 \
+            else _sampler.sampler_frames
+        block = T if "emb_pitch" in params else COND_BLOCK
+        feats_ctx_all = torch.cat([state.feat_mem, features], dim=1)
+        carry = (state.h_a, state.h_b, state.sig_mem, state.exc_idx)
+        deemph = state.deemph
+        parts = []
+        for s in range(0, T, block):
+            L = min(block, T - s)
+            feats_ctx = feats_ctx_all[:, s:s + FEAT_CONTEXT + L]
+            feats = feats_ctx[:, FEAT_CONTEXT:]
+            with tracing.span("vocoder.condition"):
+                cond = model.condition(params, feats_ctx)[:, FEAT_CONTEXT:]
+            with tracing.span("vocoder.lpc"):
+                lpc, _ = lpc_from_bands(
+                    bands_from_cepstrum(feats[..., :NB_BANDS]))
+            if greedy:
+                temp = torch.full((B, L), -1.0, device=features.device)
+                noise = None
+            else:
+                corr = torch.clamp(feats[..., NB_BANDS + 1] + 0.5, 0.0, 1.0)
+                temp = (1.0 + 1.5 * corr) * temperature_scale
+                if quiet_sharpen:
+                    quiet = torch.clamp(
+                        (QUIET_C0 - feats[..., 0]) * QUIET_GAIN, min=0.0)
+                    temp = temp * (1.0 + quiet)
+                with tracing.span("vocoder.noise"):
+                    noise = (torch.clamp(gumbel[s:s + L], max=NOISE_CAP)
+                             if gumbel is not None else
+                             gumbel_noise(state.seed, state.frame_ctr + s, L,
+                                          B, features.device, state.slot_lo,
+                                          state.slots))
+            with tracing.span("vocoder.sampler"):
+                carry, sig = run_sampler(
+                    w, carry, cond.transpose(0, 1).contiguous(),
+                    lpc.transpose(0, 1).contiguous(),
+                    temp.transpose(0, 1).contiguous(), noise, FRAME_SIZE)
+            with tracing.span("vocoder.deemph"):
+                y = deemphasis(sig, deemph)
+                deemph = y[:, -1]
+                parts.append(torch.clamp(y, -1.0, 1.0))
+        pcm = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     h_a, h_b, sig_mem, exc_idx = carry
     return pcm, NetVocoderState(
         h_a=h_a, h_b=h_b, sig_mem=sig_mem, exc_idx=exc_idx,

@@ -1,7 +1,7 @@
-"""The port's tracing (dss_tpu_torch/utils/profiling.py) on the CPU:
-``StageTimer`` against the JAX package's, ``device_trace`` on torch.profiler
-(a Chrome trace naming the ops of the caller's thread and of an executor
-thread), and the app's ``--profile-dir``."""
+"""The port's device trace (dss_tpu_torch/utils/profiling.py) on the CPU:
+``device_trace`` on torch.profiler (a Chrome trace naming the ops of the
+caller's thread and of an executor thread), and the app's
+``--profile-dir`` (the units' ops and host spans in one trace)."""
 
 import contextlib
 import json
@@ -13,30 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from dss_tpu.utils.profiling import StageTimer as JStageTimer
 from dss_tpu_torch.apps import decode_online
 from dss_tpu_torch.runtime import units as tunits
-from dss_tpu_torch.utils.profiling import StageTimer, device_trace, \
-    trace_files, trace_summary
+from dss_tpu_torch.utils import tracing
+from dss_tpu_torch.utils.profiling import device_trace, trace_files, \
+    trace_summary
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
-
-
-def test_stage_timer_summary_matches_jax():
-    """The same recorded samples give the same summary (count, p50, p95,
-    mean: equal floats), and ``stage`` records one sample per region."""
-    rng = np.random.default_rng(0)
-    ours, theirs = StageTimer(), JStageTimer()
-    for name in ("packet", "word"):
-        for x in rng.gamma(2.0, 3.0, size=37):
-            ours.record(name, float(x))
-            theirs.record(name, float(x))
-    assert ours.summary() == theirs.summary()
-    with ours.stage("region"):
-        pass
-    s = ours.summary()["region"]
-    assert s["count"] == 1 and s["p50_ms"] >= 0.0
 
 
 def test_device_trace_records_every_thread(tmp_path):
@@ -77,7 +61,8 @@ def test_app_profile_dir_writes_a_trace(tmp_path, monkeypatch):
     """``decode_online --profile-dir`` wraps the run in ``device_trace``: a
     3 s session replayed in-process through the shipped INI on the CPU
     (the separate chain) leaves one trace with the units' ops, run on
-    their executor threads, beside the run's logs."""
+    their executor threads, and their host spans on the trace's clock,
+    beside the run's logs."""
     from test_torch_end_to_end import _threshold_vad
 
     fs = 1000
@@ -119,3 +104,20 @@ def test_app_profile_dir_writes_a_trace(tmp_path, monkeypatch):
     ops = {tid: t["cpu_ops"] for tid, t in s["threads"].items()}
     assert sum(n > 0 for n in ops.values()) >= 3, ops
     assert sum(ops.values()) > 1000
+    # The host spans: every packet's waits, the word's decode and vocode.
+    assert s["spans"]["graph.wait"] >= 2 * 75
+    for name in ("units.decode", "models.decode", "units.vocode",
+                 "vocoder.dsp"):
+        assert s["spans"].get(name, 0) >= 1, s["spans"]
+    assert not tracing.enabled()
+    events = json.load(open(path))["traceEvents"]
+    spans = [e for e in events if e.get("cat") == tracing.SPAN_CATEGORY]
+    (trace,) = [e for e in events if e.get("cat") == "Trace"] or [None]
+    if trace is not None:   # spans lie inside the profiler's own span
+        assert all(trace["ts"] <= e["ts"] <= e["ts"] + e["dur"]
+                   <= trace["ts"] + trace["dur"] for e in spans)
+    # A word's spans run on the decoder's and vocoder's executor threads,
+    # the rows their ops are on.
+    word = [e for e in spans if e["name"] in ("units.decode",
+                                              "units.vocode")]
+    assert all(ops.get(e["tid"], 0) > 0 for e in word)
