@@ -45,6 +45,17 @@
    the vocoder 100 frames must equal 50 + 50 bit for bit; timed at the
    three shapes by torch.profiler and events beside an empty launch, with
    its bound and the new design's chain estimate.
+   The word decoder's inference forward (D3, no TPU kernel behind it: the
+   deployed 2 x 100 bidirectional LSTM and its Linear(200 -> 20) regressor
+   in one launch), seeded, on one row at T = 137 and 250 and on three
+   ragged rows from a random state, features to the next multiple of 50:
+   ``bilstm_decode`` one launch a call, features and final (h, c) bit for
+   bit with ``bilstm_decode_plain`` on the same CUDA tensors; timed at one
+   row, T = 137 and 250, by torch.profiler and events, with the word path's
+   decode call (copy in, launch, read back), its bound and chain estimate,
+   beside cuDNN's packed run as the word head called it before D3 (the
+   library yardstick: padded input and mask, TF32 off; device time and
+   operations a call).
 3. Drives the port's online word path twice, with the shipped
    weights/vocoder_speech.npz (bunch 1, K2) and with
    weights/vocoder_speech_b8.npz (bunch 8, K3): a 16 s, 129-channel
@@ -55,7 +66,8 @@
    must hold frames x 160 finite samples.  The kernels' launch counts are
    zeroed just before each run and read just after it: the front-end
    kernel must launch once per packet call (and once per warmed call
-   size), and the eager cascade must not run on a CUDA tensor.  After each
+   size), D3 once a word and once in the word unit's warm-up, and the
+   eager cascade must not run on a CUDA tensor.  After each
    run the packet step is split (host clock, synchronized): copy +
    pre-transforms, the front-end kernel, post-transform + nVAD + read-back.
    The shipped configuration, config/debug_settings.ini (vocoder_backend
@@ -67,7 +79,8 @@
    source and its real loggers and stdout sink: three segments, each
    word's wav and the stdout PCM frames x 160 int16 samples, the
    front-end kernel launched once per packet call plus its warm-up calls,
-   D1 once per word through ``dsp_vocode``, and neither the eager cascade,
+   D3 once per word plus the decoder's warm-up call, D1 once per word
+   through ``dsp_vocode``, and neither the eager cascade,
    the eager Levinson nor D1's plain versions on a CUDA tensor.
    Then the offline entries: dss_tpu_torch.apps.synthesize on a seeded
    [300, 20] feature file with the b4 checkpoint and with its default
@@ -944,6 +957,11 @@ def main(report_path=None) -> int:
     from dss_tpu_torch.ops.filter_log_power import filter_log_power, \
         filter_log_power_plain
     from dss_tpu_torch.ops.filters import sosfilt_scan
+    from dss_tpu_torch.models.decoder import \
+        BidirectionalSpeechSynthesisModel, hold_last_frame
+    from dss_tpu_torch.models.lstm import run_lstm, seeded_init
+    from dss_tpu_torch.ops.bilstm import bilstm_decode, \
+        bilstm_decode_plain, decoder_weights, kernel_plan as bilstm_plan
     from dss_tpu_torch.ops.log_power import log_power, log_power_plain
     from dss_tpu_torch.ops.lpc_recursion import lpc_recursion, \
         lpc_recursion_plain
@@ -1622,13 +1640,175 @@ def main(report_path=None) -> int:
     ph.run("D1 timing (profiler, events; B=1 T=260, B=8 T=50, B=1 T=3600)",
            d1_timing)
 
+    # ---- D3: the word decoder ---------------------------------------------
+    # The deployed decoder (2 x 100 bidirectional, 64 inputs, 20 outputs),
+    # seeded, at the word path's shapes: features to the next multiple of 50.
+    d3 = report["kernels"]["bilstm_decoder"] = {"cases": {}}
+    D3_E, D3_H, D3_L, D3_F = 64, 100, 2, 20
+
+    def d3_decoder():
+        model = seeded_init(BidirectionalSpeechSynthesisModel(
+            D3_L, D3_H, D3_E, nb_outputs=D3_F), 0).to(dev).eval()
+        return model, decoder_weights(model.lstm, model.regressor)
+
+    def d3_check():
+        _model, w = d3_decoder()
+        g = torch.Generator().manual_seed(3)
+        # One row at T = 137 and 250 from zeros; three ragged rows (the
+        # sharded unit's) from a random state; garbage in the padding.
+        for lengths, state in (([137], False), ([250], False),
+                               ([250, 137, 49], True)):
+            B, T = len(lengths), max(lengths)
+            x = torch.randn((B, T, D3_E), generator=g)
+            for b, n in enumerate(lengths):
+                x[b, n:] = 5.0
+            st = tuple((0.3 * torch.randn((2 * D3_L, B, D3_H), generator=g)
+                        ).to(dev) for _ in "hc") if state else None
+            x = x.to(dev)
+            Tp = -(-T // 50) * 50
+            n0 = bilstm_decode.launches
+            with torch.no_grad():
+                feats, (h, c) = bilstm_decode(x, lengths, w, st, Tp)
+            torch.cuda.synchronize()
+            launches = bilstm_decode.launches - n0
+            t0 = time.perf_counter()
+            want, (wh, wc) = bilstm_decode_plain(x, lengths, w, st, Tp)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            pairs = ((feats, want), (h, wh), (c, wc))
+            case = d3["cases"][f"B{B}_T{T}"] = dict(
+                lengths=lengths, launches=launches, plain_ms=plain_ms,
+                bit_equal=all(torch.equal(a, b) for a, b in pairs),
+                max_abs_err=max(float((a - b).abs().max()) for a, b in pairs))
+            print(f"D3 lengths {lengths}: {launches} launch; features and "
+                  f"final state bit-equal to the plain version on the card "
+                  f"{case['bit_equal']} (max error {case['max_abs_err']}; "
+                  f"plain {plain_ms:.0f} ms)")
+            if launches != 1 or not case["bit_equal"] \
+                    or feats.shape != (B, Tp, D3_F):
+                raise AssertionError(f"D3 {lengths}: {case}")
+        d3["max_abs_err"] = 0.0  # bit for bit with its plain version
+        d3["plain_ms"] = d3["cases"]["B1_T250"]["plain_ms"]
+    ph.run("D3 word decoder vs its plain version (B=1 T=137 and 250, B=3 "
+           "ragged)", d3_check)
+
+    def d3_timing():
+        from torch.profiler import ProfilerActivity, profile
+
+        from dss_tpu_torch.runtime.units import _decode_padded
+
+        model, w = d3_decoder()
+
+        def device_ms(fn, n, name=None):
+            """(device ms a call, device operations a call) over n calls:
+            the kernels named ``name``, or every operation on the card."""
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and (name is None or name in e.key)]
+            total = sum(getattr(e, "self_device_time_total", None)
+                        or e.self_cuda_time_total for e in ev)
+            return (total / n / 1e3 if total > 0 else None), \
+                sum(e.count for e in ev) / n
+
+        def host_ms(fn, n):
+            fn()
+            times = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return pct(times, 50)
+
+        def packed(data, T, Tp):
+            """The word head's decode before D3 (the library yardstick,
+            never called by the port): the input padded to Tp with a mask,
+            cuDNN's packed run, the regressor, the repeat-pad."""
+            x = torch.zeros((1, Tp, D3_E))
+            x[0, :T] = torch.as_tensor(data)
+            mask = torch.zeros((1, Tp))
+            mask[0, :T] = 1.0
+            y, _ = run_lstm(model.lstm, x.to(dev), None, mask=mask)
+            return hold_last_frame(model.regressor(y), [T])
+
+        weights = sum(p.numel() for p in model.parameters())
+        rng = np.random.default_rng(0)
+        shapes = {}
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            with torch.no_grad():
+                for T in (137, 250):
+                    Tp = -(-T // 50) * 50
+                    data = rng.normal(size=(T, D3_E)).astype(np.float32)
+                    x = torch.as_tensor(data)[None].to(dev)
+                    run = lambda: bilstm_decode(x, [T], w, None, Tp)  # noqa
+                    dev_ms, _ = device_ms(run, 20, "bilstm_decoder_kernel")
+                    lib_ms, lib_ops = device_ms(
+                        lambda: packed(data, T, Tp), 10)
+                    # Multiply-adds (x2): per layer and direction the input
+                    # and recurrent products, then the regressor.
+                    flops, width = 0.0, D3_E
+                    for _ in range(D3_L):
+                        flops += 2 * 2 * 4 * D3_H * (width + D3_H) * T
+                        width = 2 * D3_H
+                    flops += 2 * width * D3_F * T
+                    # Bytes: the weights, the input, the features and the
+                    # final state once.
+                    nbytes = 4.0 * (weights + T * D3_E + Tp * D3_F
+                                    + 2 * 2 * D3_L * D3_H)
+                    t_b, t_f = nbytes / H100_BYTES_PER_S, \
+                        flops / H100_F32_FLOPS
+                    shapes[f"T{T}"] = dict(
+                        profiler_ms=dev_ms, events_ms=cuda_ms(run, 100),
+                        word_call_ms=host_ms(lambda: _decode_padded(
+                            model, data, T, 50, dev)[1].cpu(), 20),
+                        library_ms=lib_ms, library_ops=lib_ops,
+                        library_call_ms=host_ms(
+                            lambda: packed(data, T, Tp).cpu(), 20),
+                        plain_ms=d3["cases"].get(f"B1_T{T}", {}).get(
+                            "plain_ms"),
+                        bound_ms=max(t_b, t_f) * 1e3,
+                        bound_by="bytes" if t_b > t_f else "operations",
+                        gflop=flops / 1e9, bytes=nbytes,
+                        # L x T dependent steps (the directions run side by
+                        # side) of ~700 clocks at the boost clock.
+                        chain_estimate_ms=D3_L * T * 700 / H100_BOOST_HZ
+                        * 1e3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        word = shapes["T250"]
+        d3.update(shapes=shapes,
+                  kernel_plan=bilstm_plan(D3_E, D3_H, D3_L, D3_F),
+                  ms=word["profiler_ms"] if word["profiler_ms"] is not None
+                  else word["events_ms"],
+                  ms_from="profiler" if word["profiler_ms"] is not None
+                  else "events",
+                  library_ms=word["library_ms"], bound_ms=word["bound_ms"],
+                  bound_by=word["bound_by"],
+                  chain_estimate_ms=word["chain_estimate_ms"])
+        print("D3 (bilstm_decode, one launch a word; library: cuDNN's packed "
+              "run as the word head called it, TF32 off): " + "; ".join(
+                  f"{k}: " + ", ".join(f"{n} {v:.4g}" if isinstance(v, float)
+                                       else f"{n} {v}" for n, v in r.items())
+                  for k, r in shapes.items())
+              + f"; plan {d3['kernel_plan']}")
+    ph.run("D3 timing (profiler, events, the word call; cuDNN's packed run "
+           "beside it; T=137 and 250)", d3_timing)
+
     # ---- the main path -----------------------------------------------------
     counters = {"log_power": log_power,
                 "filter_log_power": filter_log_power,
                 "dsp_synthesis": dsp_synthesis,
                 "lpcnet_sampler_b1": sampler_frames,
                 "lpcnet_sampler_bunched": sampler_frames_bunched,
-                "lpc_recursion": lpc_recursion}
+                "lpc_recursion": lpc_recursion,
+                "bilstm_decoder": bilstm_decode}
 
     def zero_counts():
         for fn in counters.values():
@@ -1786,6 +1966,8 @@ def main(report_path=None) -> int:
                 raise AssertionError("non-finite decoded features")
         warm = len(system.FRONTEND._sizes)
         mp["front_end_expected_launches"] = mp["packet_calls"] + warm
+        # D3 once a word and once in the word unit's warm-up.
+        mp["decoder_expected_launches"] = len(sink.words) + 1
         if eager_on_card:
             raise AssertionError(f"the eager cascade ran on the card "
                                  f"{len(eager_on_card)} time(s)")
@@ -1794,6 +1976,10 @@ def main(report_path=None) -> int:
                 f"front-end kernel: {launches['filter_log_power']} launches "
                 f"for {mp['packet_calls']} packet calls + {warm} warm-up "
                 f"calls")
+        if launches["bilstm_decoder"] != len(sink.words) + 1:
+            raise AssertionError(
+                f"D3: {launches['bilstm_decoder']} launches for "
+                f"{len(sink.words)} words + 1 warm-up call")
         for name in expect:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the "
@@ -1975,6 +2161,7 @@ def main(report_path=None) -> int:
             vocode_ms=system.WAVEFORM_GENERATOR.vocode_ms,
             ingest_to_audio_ms=sink.latencies_ms, budget=sink.budget,
             front_end_expected_launches=calls + warm,
+            decoder_expected_launches=len(words) + 1,
             dsp_expected_launches=len(words), dsp_vocode_launches=vocode_launches)
         print(f"shipped config ({key}): fused_frontend={s.fused_frontend} "
               f"fused_decoder={s.fused_decoder} backend={s.vocoder_backend}; "
@@ -2006,6 +2193,10 @@ def main(report_path=None) -> int:
             raise AssertionError(
                 f"front-end kernel: {launches['filter_log_power']} launches "
                 f"for {calls} packet calls + {warm} warm-up calls")
+        # D3 once a word and once in RecurrentNeuralDecodingModel's warm-up.
+        if launches["bilstm_decoder"] != len(words) + 1:
+            raise AssertionError(f"D3: {launches['bilstm_decoder']} launches "
+                                 f"for {len(words)} words + 1 warm-up call")
         if launches["dsp_synthesis"] != len(words) \
                 or vocode_launches != len(words):
             raise AssertionError(f"D1: {launches['dsp_synthesis']} launches, "
@@ -3442,6 +3633,19 @@ def main(report_path=None) -> int:
         print(f"chip_smoke: failed phases {ph.failed}", file=sys.stderr)
         return 1
 
+    print(json.dumps({"kernels": kernel_summary(report)}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_summary(report):
+    """The kernels' line: each kernel's source, the TPU code it replaces,
+    its launches on the main path that runs it and on every counted run,
+    its error against its plain version, its time, bound and plain and
+    library times, from a complete report of ``main``."""
     meta = {
         "log_power": ("cuda", "dss_tpu_torch/csrc/log_power.cu",
                       "dss_tpu/ops/pallas/log_power.py:32"),
@@ -3458,18 +3662,21 @@ def main(report_path=None) -> int:
                           "dss_tpu/vocoder/dsp.py:67"),
         "lpc_recursion": ("cuda", "dss_tpu_torch/csrc/lpc_recursion.cu",
                           "dss_tpu/train/trainer_vocoder.py:142"),
+        "bilstm_decoder": ("cuda", "dss_tpu_torch/csrc/bilstm_decoder.cu",
+                           "dss_tpu/models/decoder.py:51"),
     }
     # Each kernel's launches on the main path that runs it: the front-end
     # kernel and the sampler at bunch 1 (K2) on the bunch-1 word path, the
     # sampler at bunch 8 (K3) on the bunch-8 word path.  The standalone
     # log-power kernel is on neither path since the front-end kernel took
-    # its place; its count is read on the bunch-8 path (0).  D1 on the
-    # shipped configuration as the INI resolves on the card.  D2 on the
+    # its place; its count is read on the bunch-8 path (0).  D1 and D3 on
+    # the shipped configuration as the INI resolves on the card.  D2 on the
     # vocoder training app's bunch-1 run.
     path_of = {"log_power": "b8", "filter_log_power": "b1",
                "lpcnet_sampler_b1": "b1", "lpcnet_sampler_bunched": "b8",
                "dsp_synthesis": "ship_resolved",
-               "lpc_recursion": "train_vocoder_b1"}
+               "lpc_recursion": "train_vocoder_b1",
+               "bilstm_decoder": "ship_resolved"}
     # Every run whose counts were zeroed before it and read after it: the
     # word paths and the shipped configuration, and on the training path
     # corpus preparation (the front-end kernel once a trial), the decoder
@@ -3501,24 +3708,26 @@ def main(report_path=None) -> int:
             "launches": report["main_path"][path_of[name]]["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
             "launches_by_path": {p: c[name] for p, c in runs.items()}})
         if "plan" in k:  # the sampler: blocks per stream, weights on chip
             kernels[-1].update(
                 cluster=k["plan"]["cluster"],
                 resident_bytes_per_block=k["plan"]["resident_bytes"])
+        if name == "bilstm_decoder":  # one row at T = 137 and 250
+            kernels[-1].update(
+                ms_by_frames={t: v["profiler_ms"] or v["events_ms"]
+                              for t, v in k["shapes"].items()},
+                library_ms_by_frames={t: v["library_ms"]
+                                      for t, v in k["shapes"].items()},
+                chain_estimate_ms=k["chain_estimate_ms"])
         if name == "lpcnet_sampler_b1":  # ms a 50-frame block by streams
             sweep = so["k2_sweep"]
             kernels[-1].update(
                 max_active_clusters=sweep["max_active_clusters"],
                 ms_by_streams={b: v["ms"] for b, v in
                                sweep["by_batch"].items()})
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -118,6 +118,10 @@ def library(defines: Sequence[str] = ()) -> ctypes.CDLL:
             lib.dss_lpcnet_sampler_bunched.restype = _I
             lib.dss_lpcnet_sampler_plan.argtypes = [_I] * 9 + [_P]
             lib.dss_lpcnet_sampler_plan.restype = _I
+            lib.dss_bilstm_decoder.argtypes = [_P] * 13 + [_I] * 7 + [_P]
+            lib.dss_bilstm_decoder.restype = _I
+            lib.dss_bilstm_plan.argtypes = [_I] * 4 + [_P]
+            lib.dss_bilstm_plan.restype = _I
             _libs[key] = lib
         return _libs[key]
 

@@ -45,7 +45,6 @@ import torch.distributed as dist
 from scipy.io.wavfile import write as _wavwrite
 
 from ..device import resolve_device
-from ..models.decoder import hold_last_frame
 from ..models.lstm import seeded_init
 from ..models.torch_port import load_checkpoint
 from ..ops.hga import HighGammaExtractor
@@ -279,19 +278,17 @@ def _load_lstm(arch, params: Optional[dict], weights: Optional[Path],
 
 @torch.no_grad()
 def _decode_padded(model, data: np.ndarray, T: int, mult: int, device):
-    """Decode the first T frames of ``data`` [>= T, E] padded to a multiple
-    of ``mult`` with a mask (exact: the padded LSTM equals the unpadded
-    one).  Returns (pred [1, T, F] of the valid frames, feats [1, Tp, F]
-    whose padded tail repeats the last valid frame, so that a vocoder never
-    consumes padding garbage)."""
+    """Decode the first T frames of ``data`` [>= T, E] in one model call on
+    those frames alone.  Returns (pred [1, T, F] of the valid frames, feats
+    [1, Tp, F], Tp the next multiple of ``mult``, whose tail repeats the
+    last valid frame, so that a vocoder never consumes padding).  The span
+    counts ``kernel`` = 1 where the call is one launch of kernel D3."""
     Tp = -(-T // mult) * mult
-    with tracing.span("models.decode", frames=T, padded_frames=Tp):
-        x = torch.zeros((1, Tp, data.shape[1]))
-        x[0, :T] = torch.as_tensor(np.asarray(data[:T], np.float32))
-        mask = torch.zeros((1, Tp))
-        mask[0, :T] = 1.0
-        pred, _ = model(x.to(device), mask=mask)
-        return pred[:, :T], hold_last_frame(pred, [T])
+    with tracing.span("models.decode", frames=T, padded_frames=Tp,
+                      kernel=int(model.takes_kernel(device))):
+        x = torch.as_tensor(np.asarray(data[:T], np.float32))[None]
+        feats, _ = model(x.to(device), lengths=[T], frames=Tp)
+        return feats[:, :T], feats
 
 
 # region Fused packet path
@@ -688,13 +685,13 @@ class FusedDecoderVocoder(Unit):
         self._chunked = not self._dsp and bool(s.chunk_emission) \
             and s.length_multiple % COND_BLOCK == 0
         self.word_ms: List[float] = []  # segment in -> first audio read
-        # Warm the decoder at every bucket, on throwaway state.
+        # Warm the decoder once, at the largest bucket (on the card: the
+        # kernel's first launch and its scratch at the largest size), on
+        # throwaway state.
         electrodes = self._model.nb_electrodes
         buckets = sorted({2 * s.length_multiple, *(s.prewarm_frames or ())})
-        # n - 1 valid frames: live words are rarely whole buckets, and the
-        # padded (packed-sequence) LSTM path has its own cuDNN plans.
-        for n in buckets:
-            self._padded_features(np.zeros((n, electrodes), np.float32), n - 1)
+        self._padded_features(np.zeros((buckets[-1], electrodes), np.float32),
+                              buckets[-1] - 1)
         # The vocoder: net on one block (every chunk has the same 50-frame
         # shape); dsp at every bucket (the frame-rate part's inverse FFT
         # has a cuFFT plan per frame count), as the JAX unit warms it.
@@ -874,14 +871,15 @@ class ShardedFusedDecoderVocoder(Unit):
 
     The slots split over the ranks of the process group, a contiguous block
     a rank (parallel/shard.py's layout, on a mesh of "data" = the ranks):
-    a rank decodes its slots in one batched ``run_lstm`` call with their
-    host lengths, holds each slot's last valid frame over its padding, and
-    vocodes them through the sampler kernel at B = its slots, with the
-    vocoder state of its streams (noise keyed by global slot).  At world 1
-    every slot runs here, with no collective.  At world > 1 rank 0 runs the
-    graph and the other ranks ``run_worker``: rank 0 broadcasts each padded
-    batch and each tail chunk's frames and gathers the ranks' packed int16
-    audio; a stop message ends their loop at ``shutdown``.  On rank 0 the
+    a rank decodes its slots in one batched decoder call with their host
+    lengths (kernel D3 on the card), each slot's last valid frame held over
+    its padding, and vocodes them through the sampler kernel at B = its
+    slots, with the vocoder state of its streams (noise keyed by global
+    slot).  At world 1 every slot runs here, with no collective.  At
+    world > 1 rank 0 runs the graph and the other ranks ``run_worker``:
+    rank 0 broadcasts each padded batch and each tail chunk's frames and
+    gathers the ranks' packed int16 audio; a stop message ends their loop
+    at ``shutdown``.  On rank 0 the
     unit's one-worker executor is the only thread that issues collectives.
     """
 
@@ -929,14 +927,13 @@ class ShardedFusedDecoderVocoder(Unit):
         self.slot_audio: dict = {}  # slot 1.. -> int16 audio of the last word
         self.word_ms: List[float] = []  # segment in -> first audio read
         if self._device.type == "cuda":
-            # Warm the decoder at every bucket (n - 1 valid frames: the
-            # packed path's cuDNN plans) and the vocoder on one chunk (the
-            # sampler's weight layout), on throwaway state.
+            # Warm the decoder once at the largest bucket (the kernel's first
+            # launch and its scratch at the largest size) and the vocoder on
+            # one chunk (the sampler's weight layout), on throwaway state.
             E = self._model.nb_electrodes
-            for T in sorted({2 * s.length_multiple,
-                             *(s.prewarm_frames or ())}):
-                self._decode(torch.zeros((n, T, E), device=self._device),
-                             np.full(n, max(T - 1, 1)))
+            T = max((2 * s.length_multiple, *(s.prewarm_frames or ())))
+            self._decode(torch.zeros((n, T, E), device=self._device),
+                         np.full(n, max(T - 1, 1)))
             with torch.no_grad():
                 net_synthesize_frames(
                     self._voc_model, self._voc_params,
@@ -963,7 +960,9 @@ class ShardedFusedDecoderVocoder(Unit):
     # -- every rank's part --------------------------------------------------
     @torch.no_grad()
     def _decode(self, x: torch.Tensor, lengths: np.ndarray) -> torch.Tensor:
-        pred, _ = self._model(x, lengths=lengths)
+        """Features [n, T, F] of x [n, T, E], each slot's frames past its
+        length holding its last valid frame."""
+        pred, _ = self._model(x, lengths=lengths, frames=x.shape[1])
         return pred
 
     @torch.no_grad()
@@ -983,9 +982,8 @@ class ShardedFusedDecoderVocoder(Unit):
         for one message: a word (x [streams, Tp, E], ``flag``: the head
         chunk only) or the tail chunk of frames ``arg ..``."""
         if cmd == _WORD:
-            mine = lengths[self._slots]
-            pred = self._decode(x[self._slots], mine)
-            self._feats = hold_last_frame(pred, mine)
+            pred = self._feats = self._decode(x[self._slots],
+                                              lengths[self._slots])
             n = self._chunk if flag else arg
             return pred, self._vocode(self._feats[:, :n])
         return None, self._vocode(self._feats[:, arg:arg + self._chunk])
@@ -1192,12 +1190,12 @@ class RecurrentNeuralDecodingModel(Unit):
         self._model = _load_lstm(s.model, s.params, s.path_to_model_weights,
                                  True, "regressor", self._device)
         self.decode_ms: List[float] = []  # wall time of each segment
-        # Warm every bucket on padded lengths (n - 1 valid frames: the
-        # packed LSTM path has its own cuDNN plans).
+        # Warm once, at the largest bucket (on the card: the kernel's first
+        # launch and its scratch at the largest size).
         electrodes = self._model.nb_electrodes
-        for n in sorted({2 * s.length_multiple, *(s.prewarm_frames or ())}):
-            _decode_padded(self._model, np.zeros((n, electrodes), np.float32),
-                           n - 1, s.length_multiple, self._device)
+        n = max((2 * s.length_multiple, *(s.prewarm_frames or ())))
+        _decode_padded(self._model, np.zeros((n, electrodes), np.float32),
+                       n - 1, s.length_multiple, self._device)
         self._executor = ThreadPoolExecutor(max_workers=1)
 
     def shutdown(self) -> None:

@@ -939,3 +939,185 @@ def test_sharded_word_unit_chunked_equals_single_shot_on_the_card(dev, name):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _decoder(dev, H=100, E=64, seed=0, L=2, F=20):
+    """A seeded decoder in eval mode; by default the deployed widths (2 x
+    100 bidirectional, 64 inputs, 20 outputs)."""
+    from dss_tpu_torch.models.decoder import BidirectionalSpeechSynthesisModel
+    from dss_tpu_torch.models.lstm import seeded_init
+    return seeded_init(BidirectionalSpeechSynthesisModel(L, H, E,
+                                                         nb_outputs=F),
+                       seed).to(dev).eval()
+
+
+def _decoder_inputs(dev, lengths, E=64, seed=1, state=False, L=2, H=100):
+    g = torch.Generator().manual_seed(seed)
+    B, T = len(lengths), max(lengths)
+    x = torch.randn((B, T, E), generator=g)
+    for b, n in enumerate(lengths):
+        x[b, n:] = 5.0  # garbage in the padding must not leak
+    st = tuple((0.3 * torch.randn((2 * L, B, H), generator=g)).to(dev)
+               for _ in "hc") if state else None
+    return x.to(dev), st
+
+
+# (E, H, L, F, lengths, initial state).  At the deployed widths: the word
+# path's one-row shapes, and a ragged batch of three rows (the sharded
+# unit's) from a random state.  Then other widths the plan takes, ragged
+# from a random state: H = 14, lane groups of 7 columns and h slots left
+# unused; E = 10 and 2H = 26, rows staged 4 bytes at a time; L = 1, one
+# output buffer; L = 3; L = 4, the last layer reading the buffer the second
+# layer read; H = 1 and F = 256, the narrowest recurrence and the widest
+# regressor; rows of length 0.
+DECODER_CASES = [(64, 100, 2, 20, [49], False),
+                 (64, 100, 2, 20, [137], False),
+                 (64, 100, 2, 20, [250], False),
+                 (64, 100, 2, 20, [299], False),
+                 (64, 100, 2, 20, [250, 137, 49], True),
+                 (10, 14, 1, 5, [17, 5, 0], True),
+                 (10, 13, 3, 7, [23, 0, 9], True),
+                 (64, 100, 4, 20, [60, 31], True),
+                 (7, 1, 2, 256, [5, 0, 3], True)]
+
+
+@pytest.mark.parametrize("E, H, L, F, lengths, state", DECODER_CASES)
+def test_bilstm_decoder_kernel_matches_plain(dev, E, H, L, F, lengths,
+                                             state):
+    """D3 against its plain version on the same CUDA tensors, the features
+    padded to the next multiple of 50: features (the repeat-pad included)
+    and final (h, c) bit for bit (both round each fused multiply-add and
+    every other operation once, in the same order), one launch."""
+    from dss_tpu_torch.ops.bilstm import bilstm_decode, \
+        bilstm_decode_plain, decoder_weights, kernel_plan
+    assert kernel_plan(E, H, L, F)["supported"]
+    m = _decoder(dev, H=H, E=E, L=L, F=F)
+    x, st = _decoder_inputs(dev, lengths, E=E, state=state, L=L, H=H)
+    w = decoder_weights(m.lstm, m.regressor)
+    Tp = -(-max(lengths) // 50) * 50
+    before = bilstm_decode.launches
+    with torch.no_grad():
+        got, (h, c) = bilstm_decode(x, lengths, w, st, Tp)
+    torch.cuda.synchronize()
+    assert bilstm_decode.launches == before + 1
+    want, (wh, wc) = bilstm_decode_plain(x, lengths, w, st, Tp)
+    assert got.shape == (len(lengths), Tp, F)
+    assert torch.equal(got, want)
+    assert torch.equal(h, wh)
+    assert torch.equal(c, wc)
+
+
+@pytest.mark.parametrize("lengths", [[250], [250, 137, 49]])
+def test_bilstm_decoder_kernel_matches_cudnn(dev, lengths):
+    """D3 through the model's forward against cuDNN's packed run of the
+    same model (run_lstm with the lengths, TF32 off), within 1e-5 at every
+    valid frame and in the final state."""
+    from dss_tpu_torch.models.lstm import run_lstm
+    from dss_tpu_torch.ops.bilstm import bilstm_decode
+    m = _decoder(dev)
+    x, _ = _decoder_inputs(dev, lengths, seed=2)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            before = bilstm_decode.launches
+            got, (h, c) = m(x, lengths=lengths)
+            assert bilstm_decode.launches == before + 1
+            y, (wh, wc) = run_lstm(m.lstm, x, None, lengths=lengths)
+            want = m.regressor(y)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for b, n in enumerate(lengths):
+        torch.testing.assert_close(got[b, :n], want[b, :n], atol=1e-5,
+                                   rtol=0)
+    torch.testing.assert_close(h, wh, atol=1e-5, rtol=0)
+    torch.testing.assert_close(c, wc, atol=1e-5, rtol=0)
+
+
+def test_word_units_launch_the_decoder_kernel_once_a_word(dev):
+    """A word through RecurrentNeuralDecodingModel and through
+    FusedDecoderVocoder's chunked head launches D3 once."""
+    from dss_tpu_torch.models.decoder import BidirectionalSpeechSynthesisModel
+    from dss_tpu_torch.ops.bilstm import bilstm_decode
+    from dss_tpu_torch.runtime import units as tunits
+    common = dict(path_to_model_weights=None,
+                  model=BidirectionalSpeechSynthesisModel,
+                  params=dict(nb_layer=2, nb_hidden_units=100,
+                              nb_electrodes=64),
+                  prewarm_frames=(100,), device="cuda")
+    sep = tunits.RecurrentNeuralDecodingModel(
+        tunits.RecurrentNeuralDecodingModelSettings(**common))
+    fused = tunits.FusedDecoderVocoder()
+    fused.apply_settings(tunits.FusedDecoderVocoderSettings(
+        vocoder_weights=str(REPO / "weights" / "vocoder_speech.npz"),
+        **common))
+    seg = np.random.default_rng(4).normal(size=(87, 64)).astype(np.float32)
+    try:
+        for u in (sep, fused):
+            u.initialize()
+        before = bilstm_decode.launches
+        sep._decode(seg)
+        assert bilstm_decode.launches == before + 1
+        fused._decode_head(seg)
+        assert bilstm_decode.launches == before + 2
+    finally:
+        for u in (sep, fused):
+            u.shutdown()
+
+
+# The word path's decode call under the profiler, in a fresh process: a
+# profiler session that follows the other card tests in one process (their
+# NCCL group, their profiler sessions) may record no CUDA activity at all.
+_DECODE_PROFILE = """
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from dss_tpu_torch.models.decoder import BidirectionalSpeechSynthesisModel
+from dss_tpu_torch.models.lstm import seeded_init
+from dss_tpu_torch.runtime.units import _decode_padded
+dev = torch.device("cuda")
+m = seeded_init(BidirectionalSpeechSynthesisModel(2, 100, 64), 0).to(dev)
+seg = np.random.default_rng(4).normal(size=(87, 64)).astype(np.float32)
+_decode_padded(m.eval(), seg, 87, 50, dev)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    _decode_padded(m, seg, 87, 50, dev)
+    torch.cuda.synchronize()
+ev = [e for e in prof.key_averages()
+      if e.device_type == torch.autograd.DeviceType.CUDA]
+print(sum(e.count for e in ev),
+      sum(e.count for e in ev if "bilstm_decoder_kernel" in e.key))
+"""
+
+
+def test_word_decode_puts_at_most_five_operations_on_the_card(dev):
+    """The word path's decode (``_decode_padded``) puts the copy in, the
+    lengths and one D3 launch on the card: at most 5 device operations,
+    where cuDNN's packed run put ~1,400."""
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", _DECODE_PROFILE], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    ops, kernels = map(int, out.stdout.split()[-2:])
+    assert kernels == 1 and 1 <= ops <= 5, (kernels, ops)
+
+
+def test_bilstm_decoder_kernel_refuses_what_it_does_not_take(dev):
+    """On CUDA tensors the wrapper launches or raises: inputs that require
+    grad with gradients on, float64 input, and a width above the plan's
+    (which the model then routes to cuDNN)."""
+    from dss_tpu_torch.ops.bilstm import bilstm_decode, decoder_weights, \
+        kernel_plan
+    m = _decoder(dev)
+    w = decoder_weights(m.lstm, m.regressor)
+    x, _ = _decoder_inputs(dev, [30])
+    with pytest.raises(ValueError):
+        bilstm_decode(x, [30], w)  # the parameters require grad
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            bilstm_decode(x.double(), [30], w)
+        H = kernel_plan(64, 100, 2, 20)["max_hidden"] + 1
+        wide = _decoder(dev, H=H)
+        assert not wide.takes_kernel(dev) and m.takes_kernel(dev)
+        with pytest.raises(ValueError):
+            bilstm_decode(x, [30], decoder_weights(wide.lstm, wide.regressor))

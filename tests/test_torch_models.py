@@ -12,8 +12,11 @@ from dss_tpu.models import BidirectionalSpeechSynthesisModel as JDec
 from dss_tpu.models import UnidirectionalVoiceActivityDetector as JVad
 from dss_tpu.models.torch_port import to_torch_state_dict
 from dss_tpu_torch.convert import lstm_state_dict
-from dss_tpu_torch.models.decoder import BidirectionalSpeechSynthesisModel
-from dss_tpu_torch.models.lstm import seeded_init
+from dss_tpu_torch.models import decoder as tdecoder
+from dss_tpu_torch.models.decoder import BidirectionalSpeechSynthesisModel, \
+    hold_last_frame
+from dss_tpu_torch.models.lstm import run_lstm, seeded_init
+from dss_tpu_torch.ops import bilstm
 from dss_tpu_torch.models.torch_port import load_checkpoint
 from dss_tpu_torch.models.vad import UnidirectionalVoiceActivityDetector
 
@@ -125,3 +128,75 @@ def test_seeded_init_is_reproducible():
         assert torch.equal(p, q), k
         assert not torch.equal(p, r), k
         assert p.abs().max() <= 1.0 / np.sqrt(10) + 1e-6
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("lengths", [[1], [49], [50], [137], [300],
+                                     [40, 13, 29]])
+def test_bilstm_decode_plain_matches_the_packed_lstm(lengths):
+    """D3's plain version against nn.LSTM's packed run (run_lstm with the
+    lengths) from a random state, at H = 14 (a ragged last lane group):
+    every valid frame, the final (h, c) and the repeat-padded tail (3
+    frames past the input); on the ragged batch also against the JAX
+    decoder's masked scan with the same parameters (valid frames and final
+    (h, c)).  atol 1e-5 (f32 sums in another order)."""
+    B, Tx = len(lengths), max(lengths)
+    jm = JDec(nb_layer=2, nb_hidden_units=14, nb_electrodes=10, nb_outputs=5)
+    jp = _np_tree(jm.init(jax.random.PRNGKey(7)))
+    m = BidirectionalSpeechSynthesisModel(2, 14, 10, nb_outputs=5)
+    m.load_state_dict(lstm_state_dict(jp, "regressor"))
+    m.eval()
+    g = torch.Generator().manual_seed(Tx + B)
+    x = torch.randn((B, Tx, 10), generator=g)
+    for b, n in enumerate(lengths):
+        x[b, n:] = 5.0  # garbage in the padding must not leak
+    state = tuple(0.3 * torch.randn((4, B, 14), generator=g) for _ in "hc")
+    y, (h, c) = run_lstm(m.lstm, x, state, lengths=lengths)
+    want = hold_last_frame(m.regressor(y), lengths, Tx + 3)
+    got, (gh, gc) = bilstm.bilstm_decode_plain(
+        x, lengths, bilstm.decoder_weights(m.lstm, m.regressor), state,
+        Tx + 3)
+    assert got.shape == (B, Tx + 3, 5)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(gh, h, atol=1e-5, rtol=0)
+    torch.testing.assert_close(gc, c, atol=1e-5, rtol=0)
+    if B == 1:
+        return
+    mask = (torch.arange(Tx)[None] < torch.as_tensor(lengths)[:, None])
+    y_j, (h_j, c_j) = jm.apply(jp, jnp.asarray(x.numpy()),
+                               tuple(jnp.asarray(t.numpy()) for t in state),
+                               mask=jnp.asarray(mask.float().numpy()))
+    for b, n in enumerate(lengths):
+        np.testing.assert_allclose(got[b, :n].numpy(),
+                                   np.asarray(y_j)[b, :n], atol=1e-5)
+    np.testing.assert_allclose(gh.numpy(), np.asarray(h_j), atol=1e-5)
+    np.testing.assert_allclose(gc.numpy(), np.asarray(c_j), atol=1e-5)
+
+
+def test_decoder_routes_to_the_kernel_only_where_it_may(monkeypatch):
+    """forward runs run_lstm with gradients on and on CPU tensors; the
+    kernel is taken only on a CUDA device with gradients off, dropout
+    inactive and a width the plan takes (its answer simulated here)."""
+    calls = []
+
+    def spy(*a, **k):
+        calls.append(1)
+        return run_lstm(*a, **k)
+
+    monkeypatch.setattr(tdecoder, "run_lstm", spy)
+    monkeypatch.setattr(bilstm, "kernel_plan", lambda E, H, L, F: dict(
+        max_hidden=12, supported=H <= 12))
+    narrow = BidirectionalSpeechSynthesisModel(2, 12, 8, dropout=0.5)
+    wide = BidirectionalSpeechSynthesisModel(2, 13, 8)
+    x = torch.randn((1, 6, 8))
+    narrow(x)
+    with torch.no_grad():
+        narrow.eval()(x)
+    assert len(calls) == 2
+    cuda = torch.device("cuda")
+    assert not narrow.takes_kernel("cpu")
+    assert not narrow.train().takes_kernel(cuda)  # grad on
+    with torch.no_grad():
+        assert not narrow.takes_kernel(cuda)      # dropout active
+        assert narrow.eval().takes_kernel(cuda)
+        assert not wide.eval().takes_kernel(cuda)  # above the plan's H
