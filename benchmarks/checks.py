@@ -17,9 +17,10 @@ Session cells (one user's words):
 * Neural vocoder: ``sampler_disagree``, the largest share, over the
   vocoder's calls, of samples whose excitation the reference does not put
   first given the same history and noise (teacher-forced from the stream's
-  start); ``pred_gap``, the largest gap of an unclipped sample from the
-  reference's float64 prediction plus the sample's level;
-  ``audio_gap_lsb`` as above, from the program's samples.
+  start, by the judge of the configuration's bunch); ``pred_gap``, the
+  largest gap of an unclipped sample from the reference's float64
+  prediction plus the sample's level; ``audio_gap_lsb`` as above, from the
+  program's samples.
 
 Serving cells: ``sampler_disagree``, ``pred_gap`` and ``audio_gap_lsb``
 over the first steps (from the fresh state) and a run of steps drawn from
@@ -156,6 +157,16 @@ def _dsp_states(calls):
                           int(c[1]), float(c[2]), int(c[3])) for c in calls]
 
 
+def _judge_of(ctx):
+    """The neural judge of the configuration's bunch: the bunch-1 module
+    at 1, the bunched module above it."""
+    if ctx["config"]["vocoder"]["bunch"] > 1:
+        from benchmarks.reference import lpcnet_bunched as rnet
+    else:
+        from benchmarks.reference import lpcnet as rnet
+    return rnet
+
+
 def _net_params(ctx, device):
     from benchmarks.reference import lpcnet as rnet
     path = ROOT / ctx["config"]["ini"]["Decoding"]["vocoder_weights"]
@@ -165,7 +176,7 @@ def _net_params(ctx, device):
 def _net_words(ctx, words, prog) -> Dict[str, float]:
     """The word path's vocoder stream, teacher-forced from its start."""
     import torch
-    from benchmarks.reference import lpcnet as rnet
+    rnet = _judge_of(ctx)
     calls = prog["vocoder"]
     bad = dict(sampler_disagree=SENTINEL, pred_gap=SENTINEL,
                audio_gap_lsb=SENTINEL)
@@ -248,7 +259,7 @@ def _net_control(ctx, words, prog) -> dict:
     """At each position of the program's sample history, the sample the
     bfloat16 reference chooses, in the program's place."""
     import torch
-    from benchmarks.reference import lpcnet as rnet
+    rnet = _judge_of(ctx)
     calls = prog["vocoder"]
     if words is None or not calls:
         return prog
@@ -271,6 +282,9 @@ def serve(ctx, runs: List[dict]) -> Dict[str, list]:
     """Each checked run of steps: {feats [B, T, 20], sig [B, T*160],
     pcm16 [B, T*160] int16 as read back, state (reference NetState)}."""
     from benchmarks.reference import lpcnet as rnet
+    if not runs:   # nothing checked is not correct
+        return with_limits(dict(sampler_disagree=SENTINEL, pred_gap=SENTINEL,
+                                audio_gap_lsb=SENTINEL))
     worst = dict(sampler_disagree=0.0, pred_gap=0.0, audio_gap_lsb=0.0)
     step = ctx["traffic"]["frames"] * FRAME
     for r in runs:

@@ -72,6 +72,38 @@ def k2(B: int, T: int, kept: float, GA: int = 384, GB: int = 32,
     return nbytes, flops
 
 
+def k3(B: int, T: int, S: int, kept: float, GA: int = 384, GB: int = 32,
+       CD: int = 128, E: int = 128) -> Tuple[float, float]:
+    """(bytes, operations) of one bunched sampler call at bunch S, B
+    streams x T frames.  Operations, a step of S samples: GRU-A's recurrent
+    product at the kept tiles and the sums of its 2S + 1 gathered input
+    rows, GRU-B, S head pairs, S - 1 correction pairs (two gathered rows
+    added to a sub-sample's logits), the S predictions and samplings; a
+    frame's conditioning products.  Bytes: the dense weights (GRU-A's
+    recurrent matrix at the kept tiles and its conditioning columns, GRU-B,
+    the S heads), the noise, the inputs and the samples, each once; of the
+    gathered tables (the 2S + 1 fused embedding tables, [256, 3 GA] each,
+    and the 2 (S - 1) corrections, [256, 256] each) one row each: which of
+    their rows a call reads depends on its samples, and a table read whole
+    would count more than the work needs (PERF.md's kernel table: a b8
+    chunk read 1,737 of 4,352 fused rows and 1,249 of 1,792 correction
+    rows).  E does not enter: the kernel reads the embedding tables fused
+    with GRU-A's input rows, [256, 3 GA] each."""
+    n = B * T * 160
+    steps = n // S
+    per_step = (kept * 2 * GA * 3 * GA + (2 * S + 1) * 3 * GA
+                + 2 * GA * 3 * GB + 2 * GB * 3 * GB + 12 * (GA + GB)
+                + S * (2 * GB * 512 + 3 * 256 + 2 * 16)
+                + (S - 1) * 2 * 256)
+    flops = steps * per_step + B * T * 2 * CD * 3 * (GA + GB)
+    dense = (CD * 3 * GA + 3 * GA + kept * GA * 3 * GA + 3 * GA
+             + (GA + CD) * 3 * GB + 3 * GB + GB * 3 * GB + 3 * GB
+             + S * (GB * 512 + 3 * 512 + 256))
+    gathered = (2 * S + 1) * 3 * GA + 2 * (S - 1) * 256
+    nbytes = 4 * (dense + gathered + n * 256 + B * T * (CD + 16 + 1) + n)
+    return nbytes, flops
+
+
 def lstm_flops(n_in: int, H: int, layers: int, directions: int,
                T: int, head: int) -> float:
     """Multiply-adds x 2 of a stacked LSTM and its Linear head over T

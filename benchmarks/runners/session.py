@@ -6,8 +6,9 @@ the benchmark's replay source in real time, open loop, one packet every
 The benchmark's sink takes the app's audio (and writes no PCM); a tap on
 the feature stream times each packet's frames; the app's loggers write
 under the run's directory.  Probes around four of the program's calls keep
-what the check needs (segments in, the vocoder's state or samples) and the
-shapes the rooflines count.  After the window the source stops; the graph
+what the check needs (segments in, the vocoder's state or samples: the
+sampler entry point that the configuration's bunch selects) and the shapes
+the rooflines count.  After the window the source stops; the graph
 drains, so words closed in the window finish and no new one starts."""
 
 from __future__ import annotations
@@ -147,8 +148,9 @@ def run(ctx) -> dict:
                 lambda a, k, out: (time.perf_counter(), a[1].shape[0]))
     probes.wrap(units, "_decode_padded",
                 lambda a, k, out: (np.asarray(a[1][:a[2]], np.float32),))
+    voc_entry = vocoder_entry(config) if net else "dsp_synthesize_frames"
     if net:
-        probes.wrap(sampler, "sampler_frames",
+        probes.wrap(sampler, voc_entry,
                     lambda a, k, out: (out[1], a[2].shape[0]))
     else:
         probes.wrap(lpcnet, "dsp_synthesize_frames",
@@ -174,16 +176,29 @@ def run(ctx) -> dict:
         ez.run_system(system)
     finally:
         probes.restore()
+    # The word path's vocoder as loaded must be the one the probe and the
+    # judge were chosen for.
+    loaded = system.DECODE_VOCODE._voc_model.bunch if net else None
+    if net and loaded != config["vocoder"]["bunch"]:
+        raise RuntimeError(f"the word path loaded a bunch-{loaded} "
+                           f"vocoder; the configuration states bunch "
+                           f"{config['vocoder']['bunch']}")
     rec["drain_end"] = time.perf_counter()
     if trace is not None:
         rec["trace"] = trace.finish(rec["t_end"] - rec["t0"])
     if ctx["device"] == "cuda":
         torch.cuda.synchronize()
         rec["memory_peak_bytes"] = torch.cuda.max_memory_allocated()
-    return collect(ctx, system, settings, rec, probes, net)
+    return collect(ctx, system, settings, rec, probes, net, voc_entry)
 
 
-def collect(ctx, system, settings, rec, probes, net) -> dict:
+def vocoder_entry(config) -> str:
+    """The sampler entry point the configuration's bunch selects."""
+    return "sampler_frames" if config["vocoder"]["bunch"] == 1 \
+        else "sampler_frames_bunched"
+
+
+def collect(ctx, system, settings, rec, probes, net, voc_entry) -> dict:
     """The run's numbers, from the records of the source, tap and sink, the
     units' own lists and the probes; then the check."""
     traffic = ctx["traffic"]
@@ -224,9 +239,7 @@ def collect(ctx, system, settings, rec, probes, net) -> dict:
         out["vocode_ms"] = list(system.WAVEFORM_GENERATOR.vocode_ms)
         out["word_head_ms"] = [a + b for a, b in zip(out["decode_ms"],
                                                      out["vocode_ms"])]
-    voc = probes.calls["sampler_frames" if net else "dsp_synthesize_frames"]
-    voc = voc[warm.get("sampler_frames" if net else "dsp_synthesize_frames",
-                       0):]
+    voc = probes.calls[voc_entry][warm.get(voc_entry, 0):]
     out["vocoder_calls"] = [c[-1] for c in voc]
     out["attempted"] = len(segs)
     out["failed"] = sum(1 for k in range(len(segs))

@@ -15,7 +15,8 @@ from benchmarks import run
 
 pytestmark = pytest.mark.cuda
 
-SECONDS = {"dsp_session": 8, "b1_session": 8, "b1_serve15": 4}
+SECONDS = {"dsp_session": 8, "b1_session": 8, "b8_session": 8,
+           "b1_serve15": 4}
 
 
 @pytest.fixture(scope="module")

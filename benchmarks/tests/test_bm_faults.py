@@ -5,7 +5,9 @@ and drives the rest of a short run on the CPU with one fault planted in
 the program: a vocoder call that returns its state unchanged, an answer
 altered where it is produced (a decoded frame, a vocoded frame, a frame of
 the sampler's samples, the sampler's LPC prediction off by 1%), half of a
-serving batch left out.  (One stream a session has no batch to halve, and
+serving batch left out.  The neural session faults run in each neural
+session cell, at bunch 1 and at bunch 8, each through the sampler entry
+point its bunch selects.  (One stream a session has no batch to halve, and
 no cell crosses chips.)  A sound run of each cell comes out correct, and
 its last line keeps the result's shape; the bfloat16 control in the
 program's place (``--control 1``) comes out not correct at every stage."""
@@ -95,27 +97,27 @@ def _net_state_unchanged(monkeypatch, module):
     monkeypatch.setattr(module, "net_synthesize_frames", stale)
 
 
-def _samples_altered(monkeypatch):
+def _samples_altered(monkeypatch, entry="sampler_frames"):
     from dss_tpu_torch.ops import sampler
-    orig = sampler.sampler_frames
+    orig = getattr(sampler, entry)
 
     def altered(*a, **kw):
         carry, sig = orig(*a, **kw)
         sig = sig.clone()
         sig[:, 800:960] = torch.clamp(sig[:, 800:960] * 1.5 + 0.01, -1, 1)
         return carry, sig
-    monkeypatch.setattr(sampler, "sampler_frames", altered)
+    monkeypatch.setattr(sampler, entry, altered)
 
 
-def _prediction_off(monkeypatch):
+def _prediction_off(monkeypatch, entry="sampler_frames"):
     """The sampler's LPC taps 1% off: each sample's prediction moves by
     less than half a mu-law step at most levels."""
     from dss_tpu_torch.ops import sampler
-    orig = sampler.sampler_frames
+    orig = getattr(sampler, entry)
 
     def off(w, carry, cond, lpc, *a, **kw):
         return orig(w, carry, cond, lpc * 1.01, *a, **kw)
-    monkeypatch.setattr(sampler, "sampler_frames", off)
+    monkeypatch.setattr(sampler, entry, off)
 
 
 def _half_batch(monkeypatch):
@@ -143,18 +145,25 @@ def test_bm_dsp_session_faults(capsys, monkeypatch, fault, expect):
     assert c["value"] > c["limit"]
 
 
+# Each neural session cell and the sampler entry point its bunch selects.
+NET_SESSIONS = [("b1_session", "sampler_frames"),
+                ("b8_session", "sampler_frames_bunched")]
+
+
+@pytest.mark.parametrize("workload,entry", NET_SESSIONS)
 @pytest.mark.parametrize("fault,expect", [
     ("state", "sampler_disagree"), ("samples", "sampler_disagree"),
     ("prediction", "pred_gap")])
-def test_bm_b1_session_faults(capsys, monkeypatch, fault, expect):
+def test_bm_net_session_faults(capsys, monkeypatch, workload, entry, fault,
+                               expect):
     from dss_tpu_torch.runtime import units
     if fault == "state":
         _net_state_unchanged(monkeypatch, units)
     elif fault == "samples":
-        _samples_altered(monkeypatch)
+        _samples_altered(monkeypatch, entry)
     else:
-        _prediction_off(monkeypatch)
-    line, _ = _run(capsys, monkeypatch, "b1_session", 4)
+        _prediction_off(monkeypatch, entry)
+    line, _ = _run(capsys, monkeypatch, workload, 4)
     assert line["correct"] is False
     c = line["checks"][expect]
     assert c["value"] > c["limit"]
@@ -185,9 +194,18 @@ def test_bm_b1_serve_faults(capsys, monkeypatch, fault, expect):
     assert c["value"] > c["limit"]
 
 
+def test_bm_serve_with_nothing_checked_is_not_correct():
+    """A serving run that kept no checked run of steps judges nothing: it
+    reads SENTINEL, not correct (the runner steps until it holds one)."""
+    from benchmarks import checks
+    numbers = checks.serve(dict(traffic=dict(frames=10)), [])
+    assert set(numbers) == {"sampler_disagree", "pred_gap", "audio_gap_lsb"}
+    assert not run.verdict(numbers)
+
+
 @pytest.mark.parametrize("workload,seconds,traffic", [
     ("dsp_session", 6, None), ("b1_session", 4, None),
-    ("b1_serve15", 3, SERVE)])
+    ("b8_session", 4, None), ("b1_serve15", 3, SERVE)])
 def test_bm_control_comes_out_not_correct(capsys, monkeypatch, workload,
                                           seconds, traffic):
     line, err = _run(capsys, monkeypatch, workload, seconds, traffic,
@@ -202,3 +220,18 @@ def test_bm_control_comes_out_not_correct(capsys, monkeypatch, workload,
         assert any(c["value"] > c["limit"]
                    for c in stage["checks"].values())
     assert "control vocoder check" in err
+
+
+def test_bm_session_raises_on_another_bunch(capsys, monkeypatch):
+    """A configuration that states another bunch than the vocoder the word
+    path loads is refused, not judged by the wrong judge."""
+    cell = common.cell
+
+    def wrong(bench, name):
+        entry, config, t = cell(bench, name)
+        return entry, dict(config, vocoder=dict(config["vocoder"],
+                                                bunch=8)), t
+    monkeypatch.setattr(common, "cell", wrong)
+    with pytest.raises(RuntimeError, match="bunch-1 vocoder"):
+        run.main(["--workload", "b1_session", "--seed", "7", "--seconds",
+                  "1"], device="cpu")

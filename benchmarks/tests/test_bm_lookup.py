@@ -23,6 +23,11 @@ def test_bm_lookup_by_name():
     per = [m["name"] for m in common.metrics_of(bench, "b1_serve15",
                                                 "per_layer")]
     assert "roofline.k2.serve" in per and "roofline.frontend" not in per
+    per = [m["name"] for m in common.metrics_of(bench, "b8_session",
+                                                "per_layer")]
+    assert "roofline.k3.word" in per and "roofline.k2.word" not in per
+    entry, config, traffic = common.cell(bench, "b8_session")
+    assert config["vocoder"]["bunch"] == 8 and traffic["runner"] == "session"
     e2e = [m["name"] for m in common.metrics_of(bench, "dsp_session",
                                                 "end_to_end")]
     assert e2e == ["first_audio_ms_p50", "packet_step_ms_p50", "setup_s"]

@@ -21,6 +21,7 @@ for w in bench["workloads"]:
 for m in bench["end_to_end"] + bench["per_layer"]:
     common.reader(m["name"])
 import benchmarks.reference.lpcnet, benchmarks.reference.dsp
+import benchmarks.reference.lpcnet_bunched
 import dss_tpu_torch.apps.decode_online, dss_tpu_torch.vocoder.net
 print(json.dumps(sorted({n.split(".")[0] for n in sys.modules})))
 """

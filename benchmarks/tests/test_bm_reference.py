@@ -143,3 +143,105 @@ def test_bm_sampler_judge(batch):
                        rnet.fresh_state(batch, "cpu"), quiet_sharpen=True)
     assert float(again.disagree.float().mean()) > LIM["sampler_disagree"]
     assert again.pred_gap > 3 * LIM["pred_gap"]
+
+
+def _bunched_model(S):
+    """A bunch-S checkpoint drawn from a seed at small widths, its heads'
+    gains x 10 and GRU-A's update gate held towards its state, so that the
+    network's state, and not the noise alone, steers each choice."""
+    from dss_tpu_torch.vocoder.net import LPCNetModel
+    model = LPCNetModel(gru_a_units=32, gru_b_units=16, cond_dim=16,
+                        embed_dim=8, bunch=S)
+    params = model.init(torch.Generator().manual_seed(S), "cpu")
+    for k in params:
+        if k.startswith(("fc_out1_g", "fc_out2_g")):
+            params[k] = params[k] * 10.0
+    params["gru_a_bx"] = params["gru_a_bx"].clone()
+    params["gru_a_bx"][32:64] += 3.0
+    return model, params
+
+
+def _bunched_run(S, fault=None, calls=2, T=6):
+    """The port's word-path vocoder (CPU: the plain bunched sampler) over T
+    frames in ``calls`` calls, with one fault planted where the samples are
+    produced -> (checkpoint, features, the sampler's samples, PCM)."""
+    from dss_tpu_torch.ops import sampler
+    from dss_tpu_torch.vocoder.net import gumbel_noise, \
+        net_synthesize_frames, net_vocoder_init, sampler_weights_for
+    model, params = _bunched_model(S)
+    w = sampler_weights_for(model, params)
+    f = np.random.default_rng(S).normal(scale=0.3, size=(1, T, 20))
+    f[..., 0] -= 2.0
+    feats = torch.as_tensor(f.astype(np.float32))
+    noise = gumbel_noise(0, 0, T, 1, "cpu")
+    if fault == "exc":   # sub-sample S/2 of every step picks another level
+        noise = noise.clone()
+        noise[:, S // 2::S] = noise[:, S // 2::S].roll(37, dims=-1)
+    sigs, orig = [], sampler.sampler_frames_bunched
+
+    def probe(w, carry, cond, lpc, *a, **k):
+        out = orig(w, carry, cond, lpc * 1.01 if fault == "lpc" else lpc,
+                   *a, **k)
+        if fault == "stale_h_a":
+            out = ((carry[0],) + tuple(out[0][1:]), out[1])
+        sigs.append(out[1])
+        return out
+    sampler.sampler_frames_bunched = probe
+    try:
+        st, pcm, n = net_vocoder_init(model, 1, device="cpu"), [], T // calls
+        for c in range(calls):
+            y, st = net_synthesize_frames(
+                model, params, st, feats[:, c * n:(c + 1) * n],
+                sampler_weights=w, quiet_sharpen=True,
+                gumbel=noise[c * n:(c + 1) * n])
+            pcm.append(y)
+    finally:
+        sampler.sampler_frames_bunched = orig
+    return params, feats, torch.cat(sigs, 1), torch.cat(pcm, 1)
+
+
+@pytest.mark.parametrize("S", [2, 8])
+def test_bm_bunched_judge_agrees_with_the_port(S):
+    """The plain bunched sampler judged teacher-forced under the same hashed
+    noise: no disagreement, the float64 prediction within 1e-6, the
+    de-emphasized PCM within an int16 step; the bfloat16 control in its
+    place disagrees above the limit."""
+    from benchmarks.reference import lpcnet_bunched as rb
+    params, feats, sig, pcm = _bunched_run(S)
+    v = rb.judge(params, feats, sig, rb.fresh_state(1, "cpu"),
+                 quiet_sharpen=True)
+    assert not bool(v.disagree.any())
+    assert v.pred_gap < 1e-6
+    i16 = rdsp.to_int16
+    assert np.abs(i16(pcm.numpy()).astype(int) - i16(v.pcm.numpy())).max() \
+        <= 1
+    low = rb.judge(params, feats, sig, rb.fresh_state(1, "cpu"),
+                   quiet_sharpen=True, precision="bf16")
+    again = rb.judge(params, feats, low.samples.float(),
+                     rb.fresh_state(1, "cpu"), quiet_sharpen=True)
+    assert float(again.disagree.float().mean()) > LIM["sampler_disagree"]
+    assert again.pred_gap > 3 * LIM["pred_gap"]
+
+
+@pytest.mark.parametrize("S", [2, 8])
+@pytest.mark.parametrize("fault", ["exc", "stale_h_a", "lpc"])
+def test_bm_bunched_judge_catches_faults(S, fault):
+    """Each fault planted in the port's samples comes out not correct: a
+    sub-sample's excitation changed at j = S/2 > 0 (the next sub-sample's
+    correction, or the next step's lags, must take the changed one: the
+    judge disagrees at j alone); GRU-A's state returned stale by each call;
+    the LPC taps 1% off."""
+    from benchmarks.reference import lpcnet_bunched as rb
+    params, feats, sig, _ = _bunched_run(
+        S, fault, calls=6 if fault == "stale_h_a" else 2)
+    v = rb.judge(params, feats, sig, rb.fresh_state(1, "cpu"),
+                 quiet_sharpen=True)
+    share = float(v.disagree.float().mean())
+    if fault == "lpc":
+        assert v.pred_gap > LIM["pred_gap"]
+        return
+    assert share > LIM["sampler_disagree"]
+    if fault == "exc":
+        by = v.disagree[0].reshape(-1, S).sum(0)
+        assert int(by[S // 2]) > 0.8 * (sig.shape[1] // S)
+        assert int(by.sum() - by[S // 2]) <= 2

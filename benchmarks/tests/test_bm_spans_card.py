@@ -17,7 +17,8 @@ from benchmarks import span_run, spans
 
 pytestmark = pytest.mark.cuda
 
-SECONDS = {"dsp_session": 8, "b1_session": 8, "b1_serve15": 4}
+SECONDS = {"dsp_session": 8, "b1_session": 8, "b8_session": 8,
+           "b1_serve15": 4}
 SESSION = ("graph.fe_wait_ms_p50", "units.fe_launch_ms_p50",
            "models.decode_launch_ms_p50", "models.decode_kernels_p50",
            "device.word_head_idle_ms_p50")
