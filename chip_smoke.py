@@ -30,6 +30,14 @@
    Through the kernel a 100-frame call must equal two 50-frame calls bit
    for bit, at bunch 1 and bunch 8.  A sampler's bound counts the gathered
    tables at the distinct rows the block's data reads.
+   The net path's LPC (D4, ``lpc_frames``) and de-emphasis (D5,
+   ``deemphasis``), no TPU kernel behind either, at 1, 15 and 16 streams x
+   50 frames: one launch a call, bit for bit with ``lpc_frames_plain`` and
+   ``deemphasis_plain``; timed by torch.profiler, events and a
+   synchronized call, beside their bounds and the routes they replaced
+   (the eager LPC, the blocked de-emphasis) as the library yardstick.
+   Every word-path, scale-out and serving run below asserts D4 and D5
+   once a synthesis block (as often as the sampler).
    The DSP vocoder's whole call (D1, no TPU kernel behind it: frame
    parameters, noise and the frame-parallel sample loop in one launch) on
    seeded features with voiced and unvoiced frames and periods 32-256, at
@@ -281,6 +289,38 @@ def profiled_ms(fn, reps: int, key: str):
             total += t if t is not None else getattr(e, "cuda_time_total", 0)
             count += e.count
     return (total / count / 1e3 if count and total > 0 else None), count
+
+
+def device_ms(fn, n, name=None):
+    """(device ms a call, device operations a call) over n calls of ``fn``
+    under torch.profiler: the kernels whose name holds ``name``, or every
+    operation on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and (name is None or name in e.key)]
+    total = sum(getattr(e, "self_device_time_total", None)
+                or e.self_cuda_time_total for e in ev)
+    return (total / n / 1e3 if total > 0 else None), \
+        sum(e.count for e in ev) / n
+
+
+def host_ms(fn, n):
+    """Median host ms of a call of ``fn`` (which synchronizes itself, or
+    is timed for its launches alone)."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return pct(times, 50)
 
 
 def session(seconds=16.0, bursts=((2.0, 3.5), (7.0, 8.5), (12.0, 13.5)),
@@ -962,6 +1002,8 @@ def main(report_path=None) -> int:
     from dss_tpu_torch.models.lstm import run_lstm, seeded_init
     from dss_tpu_torch.ops.bilstm import bilstm_decode, \
         bilstm_decode_plain, decoder_weights, kernel_plan as bilstm_plan
+    from dss_tpu_torch.ops.cepstrum_lpc import lpc_frames, lpc_frames_plain
+    from dss_tpu_torch.ops.deemphasis import deemphasis, deemphasis_plain
     from dss_tpu_torch.ops.log_power import log_power, log_power_plain
     from dss_tpu_torch.ops.lpc_recursion import lpc_recursion, \
         lpc_recursion_plain
@@ -1389,7 +1431,149 @@ def main(report_path=None) -> int:
             report.setdefault("chunk_invariance", {})[name] = same
             if not same or not bool(whole.abs().max() > 0):
                 raise AssertionError(f"chunked != single-shot at {name}")
-    ph.run("chunk invariance on the card (100 frames == 2 x 50, b1 and b8)",
+        block_kernels()
+
+    def blocked_deemphasis(sig, y0, consts):
+        """The de-emphasis the port ran before D5 (the library yardstick,
+        never called by the port): a [160 x 160] in-frame product, an
+        [L x L] product over the frame ends, the carries, the clip."""
+        M_t, a_k, Q_t, a_j = consts
+        B, N = sig.shape
+        z = sig.reshape(B, N // 160, 160) @ M_t
+        c = z[..., -1] @ Q_t + a_j * y0[:, None]
+        c_prev = torch.cat([y0[:, None], c[:, :-1]], dim=1)
+        y = (z + c_prev[..., None] * a_k).reshape(B, N)
+        return torch.clamp(y, -1.0, 1.0), y[:, -1]
+
+    def block_kernels():
+        """D4 (the LPC) and D5 (the de-emphasis) at the net path's block
+        shapes, 1, 15 and 16 streams x 50 frames: bit for bit with their
+        plain versions on the same tensors, one launch a call; each timed
+        by the profiler (its kernel) and the host clock (a synchronized
+        call), beside its bound (bytes and operations; D5 also its
+        dependent chain) and the route it replaced as ``library_ms`` (the
+        eager LPC lpc_from_bands(bands_from_cepstrum(.)) with the copy to
+        [L, B, 16]; the blocked de-emphasis)."""
+        k = np.arange(160)
+        d = k[:, None] - k[None, :]
+        A = lpc_mod.PREEMPH ** 160
+        j = np.arange(50)
+        dj = j[:, None] - j[None, :]
+        consts = tuple(torch.tensor(np.asarray(x), dtype=torch.float32,
+                                    device=dev) for x in (
+            np.where(d >= 0, lpc_mod.PREEMPH ** np.maximum(d, 0), 0.0).T,
+            lpc_mod.PREEMPH ** (k + 1.0),
+            np.where(dj >= 0, A ** np.maximum(dj, 0), 0.0).T,
+            A ** (j + 1.0)))
+        d4 = report["kernels"]["cepstrum_lpc"] = {"shapes": {}}
+        d5 = report["kernels"]["deemphasis"] = {"shapes": {}}
+        # Per frame: 18 x 18, 18 x 161 and 161 x 17 multiply-adds, 18
+        # powers, the lag window and Levinson (~576); 18 floats in, 16 out,
+        # and the tables once.
+        d4_flops = 2 * (18 * 18 + 18 * 161 + 161 * 17) + 18 + 17 + 576
+        tab_bytes = 4 * (17 * 256 + 18 * 32 + 18 * 161 + 17)
+        for B in (1, 15, 16):
+            g = torch.Generator().manual_seed(40 + B)
+            feats = torch.randn((B, 52, 20), generator=g) * 0.3
+            feats[..., 0] -= 4.0
+            view = feats.to(dev)[:, 2:]
+            n0 = lpc_frames.launches
+            taps = lpc_frames(view)
+            torch.cuda.synchronize()
+            launches4 = lpc_frames.launches - n0
+            equal4 = torch.equal(taps, lpc_frames_plain(view))
+            lib_taps = lpc_from_bands(bands_from_cepstrum(
+                view[..., :18]))[0].transpose(0, 1)
+            lib_err = float((taps - lib_taps).abs().max())
+            sig = torch.randn((B, 8000), generator=g) * 0.3
+            y0 = torch.randn((B,), generator=g)
+            sig_d, y0_d = sig.to(dev), y0.to(dev)
+            out = torch.empty_like(sig_d)
+            n0 = deemphasis.launches
+            last = deemphasis(sig_d, y0_d, out)
+            torch.cuda.synchronize()
+            launches5 = deemphasis.launches - n0
+            want = deemphasis_plain(sig.numpy(), y0.numpy())
+            equal5 = np.array_equal(out.cpu().numpy(), want) and \
+                np.array_equal(last.cpu().numpy(), want[:, -1])
+            old_pcm, _ = blocked_deemphasis(sig_d, y0_d, consts)
+            old_err = float((old_pcm - out.clamp(-1.0, 1.0)).abs().max())
+
+            def lib4():
+                return lpc_from_bands(bands_from_cepstrum(
+                    view[..., :18]))[0].transpose(0, 1).contiguous()
+
+            def synced(fn):
+                def run():
+                    fn()
+                    torch.cuda.synchronize()
+                return run
+
+            run4 = lambda: lpc_frames(view)  # noqa: E731
+            run5 = lambda: deemphasis(sig_d, y0_d, out)  # noqa: E731
+            lib5 = lambda: blocked_deemphasis(sig_d, y0_d, consts)  # noqa
+            ms4, _ = device_ms(run4, 50, "cepstrum_lpc_kernel")
+            ms5, _ = device_ms(run5, 50, "deemphasis_kernel")
+            lib4_ms, lib4_ops = device_ms(lib4, 10)
+            lib5_ms, lib5_ops = device_ms(lib5, 20)
+            frames = B * 50
+            b4, f4 = frames * 34 * 4 + tab_bytes, frames * d4_flops
+            b5, f5 = B * 8000 * 8 + B * 8, B * 8000 * 2
+            t4b, t4f = b4 / H100_BYTES_PER_S, f4 / H100_F32_FLOPS
+            t5b, t5f = b5 / H100_BYTES_PER_S, f5 / H100_F32_FLOPS
+            d4["shapes"][f"B{B}"] = dict(
+                launches=launches4, bit_equal=equal4,
+                library_max_abs_diff=lib_err, profiler_ms=ms4,
+                events_ms=cuda_ms(run4, 50), call_ms=host_ms(synced(run4),
+                                                             50),
+                library_ms=lib4_ms, library_ops=lib4_ops,
+                library_call_ms=host_ms(synced(lib4), 20),
+                bound_ms=max(t4b, t4f) * 1e3,
+                bound_by="bytes" if t4b > t4f else "operations",
+                bytes=b4, flops=f4)
+            d5["shapes"][f"B{B}"] = dict(
+                launches=launches5, bit_equal=equal5,
+                library_max_abs_diff=old_err, profiler_ms=ms5,
+                events_ms=cuda_ms(run5, 50), call_ms=host_ms(synced(run5),
+                                                             50),
+                library_ms=lib5_ms, library_ops=lib5_ops,
+                library_call_ms=host_ms(synced(lib5), 20),
+                bound_ms=max(t5b, t5f) * 1e3,
+                bound_by="bytes" if t5b > t5f else "operations",
+                bytes=b5, flops=f5,
+                # 8000 dependent multiply-add pairs of ~8 clocks.
+                chain_estimate_ms=8000 * 8 / H100_BOOST_HZ * 1e3)
+            print(f"D4 at {B} x 50: bit for bit {equal4}, {launches4} "
+                  f"launch(es), {ms4} ms (profiler), call "
+                  f"{d4['shapes'][f'B{B}']['call_ms']:.3f} ms; library "
+                  f"route {lib4_ms} ms in {lib4_ops:.0f} operations, call "
+                  f"{d4['shapes'][f'B{B}']['library_call_ms']:.3f} ms, max "
+                  f"diff {lib_err:.3g}; bound "
+                  f"{d4['shapes'][f'B{B}']['bound_ms']:.2g} ms")
+            print(f"D5 at {B} x 8000 samples: bit for bit {equal5}, "
+                  f"{launches5} launch(es), {ms5} ms (profiler), call "
+                  f"{d5['shapes'][f'B{B}']['call_ms']:.3f} ms; blocked "
+                  f"route {lib5_ms} ms in {lib5_ops:.0f} operations, call "
+                  f"{d5['shapes'][f'B{B}']['library_call_ms']:.3f} ms, max "
+                  f"diff {old_err:.3g}; bound "
+                  f"{d5['shapes'][f'B{B}']['bound_ms']:.2g} ms, chain "
+                  f"{d5['shapes'][f'B{B}']['chain_estimate_ms']:.3f} ms")
+            if launches4 != 1 or not equal4 or launches5 != 1 or not equal5 \
+                    or not old_err <= 1e-5:
+                raise AssertionError(f"D4 / D5 at {B} x 50: "
+                                     f"{d4['shapes'][f'B{B}']} "
+                                     f"{d5['shapes'][f'B{B}']}")
+        for kern in (d4, d5):
+            one = kern["shapes"]["B1"]
+            kern.update(max_abs_err=0.0, plain_ms=None,
+                        ms=one["profiler_ms"] if one["profiler_ms"]
+                        is not None else one["events_ms"],
+                        ms_from="profiler" if one["profiler_ms"] is not None
+                        else "events",
+                        library_ms=one["library_ms"],
+                        bound_ms=one["bound_ms"], bound_by=one["bound_by"])
+    ph.run("chunk invariance on the card (100 frames == 2 x 50, b1 and b8); "
+           "D4 and D5 at 1, 15 and 16 x 50 frames vs plain, timed",
            chunk_invariance)
 
     # ---- sosfilt_scan per packet (eager torch) --------------------------------
@@ -1693,37 +1877,9 @@ def main(report_path=None) -> int:
            "ragged)", d3_check)
 
     def d3_timing():
-        from torch.profiler import ProfilerActivity, profile
-
         from dss_tpu_torch.runtime.units import _decode_padded
 
         model, w = d3_decoder()
-
-        def device_ms(fn, n, name=None):
-            """(device ms a call, device operations a call) over n calls:
-            the kernels named ``name``, or every operation on the card."""
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-            ev = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and (name is None or name in e.key)]
-            total = sum(getattr(e, "self_device_time_total", None)
-                        or e.self_cuda_time_total for e in ev)
-            return (total / n / 1e3 if total > 0 else None), \
-                sum(e.count for e in ev) / n
-
-        def host_ms(fn, n):
-            fn()
-            times = []
-            for _ in range(n):
-                t0 = time.perf_counter()
-                fn()
-                times.append((time.perf_counter() - t0) * 1e3)
-            return pct(times, 50)
 
         def packed(data, T, Tp):
             """The word head's decode before D3 (the library yardstick,
@@ -1808,7 +1964,9 @@ def main(report_path=None) -> int:
                 "lpcnet_sampler_b1": sampler_frames,
                 "lpcnet_sampler_bunched": sampler_frames_bunched,
                 "lpc_recursion": lpc_recursion,
-                "bilstm_decoder": bilstm_decode}
+                "bilstm_decoder": bilstm_decode,
+                "cepstrum_lpc": lpc_frames,
+                "deemphasis": deemphasis}
 
     def zero_counts():
         for fn in counters.values():
@@ -1816,6 +1974,18 @@ def main(report_path=None) -> int:
 
     def read_counts():
         return {name: fn.launches for name, fn in counters.items()}
+
+    def once_a_block(launches, where):
+        """D4 and D5 launch once a synthesis block: as often as the sampler
+        (K2 or K3), which only net_synthesize_frames calls."""
+        blocks = launches["lpcnet_sampler_b1"] + \
+            launches["lpcnet_sampler_bunched"]
+        if launches["cepstrum_lpc"] != blocks \
+                or launches["deemphasis"] != blocks:
+            raise AssertionError(
+                f"{where}: D4 {launches['cepstrum_lpc']} and D5 "
+                f"{launches['deemphasis']} launches for {blocks} sampler "
+                f"launches (one each a synthesis block)")
 
     def main_path(key, weights_name, expect, trace_dir=None, zmq=False,
                   splits=True):
@@ -1980,6 +2150,7 @@ def main(report_path=None) -> int:
             raise AssertionError(
                 f"D3: {launches['bilstm_decoder']} launches for "
                 f"{len(sink.words)} words + 1 warm-up call")
+        once_a_block(launches, f"main path {key}")
         for name in expect:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the "
@@ -2202,6 +2373,7 @@ def main(report_path=None) -> int:
             raise AssertionError(f"D1: {launches['dsp_synthesis']} launches, "
                                  f"{vocode_launches} through dsp_vocode, for "
                                  f"{len(words)} words")
+        once_a_block(launches, f"shipped config {key}")
     ph.run("shipped config, run 1 (INI on cuda: FusedFrontendVad -> "
            "RecurrentNeuralDecodingModel -> DelayedLPCNetVocoder(dsp))",
            lambda: shipped("ship_resolved", True))
@@ -3408,6 +3580,7 @@ def main(report_path=None) -> int:
                     if len(sink.words) != 3 or launches[kernel] <= 0 or \
                             launches["filter_log_power"] <= 0:
                         raise AssertionError(f"{key}: {rec}")
+                    once_a_block(launches, key)
                     if any(len(w) != len(x) * 160 for w, x in
                            zip(sink.words, sink.segments)):
                         raise AssertionError(f"{key}: word lengths")
@@ -3543,6 +3716,7 @@ def main(report_path=None) -> int:
                 if line["pcm_shape"] != [spd, 8000] or \
                         launches["lpcnet_sampler_b1"] <= 0:
                     raise AssertionError(f"serve_multichip {spd}: {line}")
+                once_a_block(launches, f"serve_multichip {spd}")
 
             # (e) the data-parallel steps at world 1 against the plain
             # single-card steps on the same data.
@@ -3664,6 +3838,11 @@ def kernel_summary(report):
                           "dss_tpu/train/trainer_vocoder.py:142"),
         "bilstm_decoder": ("cuda", "dss_tpu_torch/csrc/bilstm_decoder.cu",
                            "dss_tpu/models/decoder.py:51"),
+        # No TPU kernel: the JAX package leaves these to XLA.
+        "cepstrum_lpc": ("cuda", "dss_tpu_torch/csrc/cepstrum_lpc.cu",
+                         "dss_tpu/vocoder/net.py:410"),
+        "deemphasis": ("cuda", "dss_tpu_torch/csrc/deemphasis.cu",
+                       "dss_tpu/vocoder/net.py:527"),
     }
     # Each kernel's launches on the main path that runs it: the front-end
     # kernel and the sampler at bunch 1 (K2) on the bunch-1 word path, the
@@ -3676,7 +3855,8 @@ def kernel_summary(report):
                "lpcnet_sampler_b1": "b1", "lpcnet_sampler_bunched": "b8",
                "dsp_synthesis": "ship_resolved",
                "lpc_recursion": "train_vocoder_b1",
-               "bilstm_decoder": "ship_resolved"}
+               "bilstm_decoder": "ship_resolved",
+               "cepstrum_lpc": "b1", "deemphasis": "b1"}
     # Every run whose counts were zeroed before it and read after it: the
     # word paths and the shipped configuration, and on the training path
     # corpus preparation (the front-end kernel once a trial), the decoder
@@ -3721,6 +3901,14 @@ def kernel_summary(report):
                 library_ms_by_frames={t: v["library_ms"]
                                       for t, v in k["shapes"].items()},
                 chain_estimate_ms=k["chain_estimate_ms"])
+        if name in ("cepstrum_lpc", "deemphasis"):  # 1, 15, 16 x 50 frames
+            kernels[-1].update(
+                ms_by_streams={b: v["profiler_ms"] or v["events_ms"]
+                               for b, v in k["shapes"].items()},
+                library_ms_by_streams={b: v["library_ms"]
+                                       for b, v in k["shapes"].items()},
+                call_ms_by_streams={b: v["call_ms"]
+                                    for b, v in k["shapes"].items()})
         if name == "lpcnet_sampler_b1":  # ms a 50-frame block by streams
             sweep = so["k2_sweep"]
             kernels[-1].update(

@@ -24,12 +24,9 @@
 // the work is rearranged into frame-parallel phases with two short serial passes:
 //
 //   A  (frame-parallel, one warp a frame) the frame parameters, in the eager order of
-//      vocoder/dsp.py::frame_parameters: the pitch decode; the three row-wise products of
-//      vocoder/lpc.py::lpc_from_cepstrum_framewise (DCT over 32 log energies, powf(10, .),
-//      bands -> 161 PSD bins, 17 inverse-FFT lags), each summed as the same pairwise tree
-//      (K padded to 32 / 32 / 256; the 256-term tree as eight products a lane and a
-//      five-level butterfly, which adds the same pairs); the lag window; Levinson in the
-//      order of lpc.py::levinson; gain, v_mix, voiced; and, unless the caller gives it, the
+//      vocoder/dsp.py::frame_parameters: the pitch decode; cepstrum -> LPC in the order of
+//      vocoder/lpc.py::lpc_from_cepstrum_framewise (cepstrum_lpc.cuh, which the neural
+//      vocoder's LPC kernel shares); gain, v_mix, voiced; and, unless the caller gives it, the
 //      noise (the counter hash and Box-Muller of vocoder/dsp.py::gaussian_noise).
 //   B  (serial, one warp, beside A on an SM of its own) the pitch phase entering each
 //      frame: the pulses of a frame fall at max(p, 0) + j * period, which gives the phase
@@ -66,18 +63,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cepstrum_lpc.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kFrame = 160;
-constexpr int kOrder = 16;
 constexpr int kRuns = kOrder + 1;          // runs of phase C a frame
-constexpr int kLanes = 32;
 constexpr int kFeat = 20;
-constexpr int kBands = 18;
-constexpr int kFreq = 161;
-constexpr int kLags = kOrder + 1;
 constexpr int kRow = 20;                   // floats a row of a frame's record (16-B rows)
 constexpr int kRec = kRuns * kRow;         // a frame's record: its 17 x 17 carry map
 constexpr int kCluster = 8;                // blocks a stream
@@ -88,14 +82,6 @@ constexpr int kChunk = 8;                  // frames a slot of the carry pass's 
 constexpr int kSlots = 4;                  // slots: the feed runs up to 3 slots ahead
 constexpr int kProducers = 4;              // warps that stream records into the ring
 constexpr float kPreemph = 0.85f;
-constexpr unsigned kFull = 0xffffffffu;
-// The constant tables, one buffer (ops/dsp_synthesis.py::_tables): the inverse-FFT lags
-// transposed and padded to [17][256], DCT_MATRIX_32 [18][32], BAND_MATRIX [18][161],
-// LAG_WINDOW [17].
-constexpr int kTabIrfft = 0;
-constexpr int kTabDct = kTabIrfft + kLags * 256;
-constexpr int kTabBand = kTabDct + kBands * 32;
-constexpr int kTabLag = kTabBand + kBands * kFreq;
 static_assert(kOrder == 16, "the tap tree below is written for 16 taps");
 static_assert(kFrame % kLanes == 0 && kFrame % kOrder == 0, "frame layout");
 static_assert(kRow % 4 == 0 && kRow > kOrder, "record layout");
@@ -129,19 +115,6 @@ struct Args {
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return x < lo ? lo : (x > hi ? hi : x);  // torch.clamp: NaN stays NaN
-}
-
-// ((p0+p1)+(p2+p3))+...: the pairwise tree, N a power of two, every index a constant.
-template <int N>
-__device__ __forceinline__ float tree(const float (&p)[N]) {
-  if constexpr (N == 1) {
-    return p[0];
-  } else {
-    float q[N / 2];
-#pragma unroll
-    for (int j = 0; j < N / 2; ++j) q[j] = __fadd_rn(p[2 * j], p[2 * j + 1]);
-    return tree(q);
-  }
 }
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {  // MurmurHash3's finalizer
@@ -211,84 +184,13 @@ __device__ long long g_trace[8];
 __device__ void frame_prologue(const Args& a, int b, int t, int lane, float* psd) {
   const size_t fi = static_cast<size_t>(b) * a.T + t;
   const float* feat = a.features + fi * kFeat;
-  const float* tab = a.tables;
   const float ceps = lane < kBands ? __ldg(feat + lane) : 0.0f;
   const float f18 = __ldg(feat + kBands), f19 = __ldg(feat + kBands + 1);
-
-  // Log band energies: lane n sums ceps[k] * DCT_MATRIX_32[k][n] over k < 18 (tree of 32).
-  float p[32];
-#pragma unroll
-  for (int k = 0; k < 32; ++k) {
-    const float c = __shfl_sync(kFull, ceps, k < kBands ? k : 0);
-    p[k] = k < kBands ? __fmul_rn(c, __ldg(tab + kTabDct + k * 32 + lane)) : 0.0f;
-  }
-  const float band = powf(10.0f, tree(p));
-  float bands[kBands];
-#pragma unroll
-  for (int k = 0; k < kBands; ++k) bands[k] = __shfl_sync(kFull, band, k);
-
-  // PSD bin f (f = lane + 32 r): bands @ BAND_MATRIX, tree of 32; bins 161-255 are the
-  // 256-term tree's zero padding.
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int f = lane + 32 * r;
-    if (f < kFreq) {
-#pragma unroll
-      for (int k = 0; k < 32; ++k)
-        p[k] = k < kBands ? __fmul_rn(bands[k], __ldg(tab + kTabBand + k * kFreq + f)) : 0.0f;
-      psd[f] = tree(p);
-    } else {
-      psd[f] = 0.0f;
-    }
-  }
-  __syncwarp();
-  float ps[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) ps[i] = psd[8 * lane + i];
-  __syncwarp();
-
-  // Lags 0..16 of the inverse FFT: lane l sums bins 8l..8l+7, the butterfly adds lanes in
-  // the tree's pairs; then the lag window.
-  float r[kLags];
-#pragma unroll
-  for (int k = 0; k < kLags; ++k) {
-    const float4* il = reinterpret_cast<const float4*>(tab + kTabIrfft + k * 256 + 8 * lane);
-    const float4 lo = __ldg(il), hi = __ldg(il + 1);
-    float q[8] = {__fmul_rn(ps[0], lo.x), __fmul_rn(ps[1], lo.y), __fmul_rn(ps[2], lo.z),
-                  __fmul_rn(ps[3], lo.w), __fmul_rn(ps[4], hi.x), __fmul_rn(ps[5], hi.y),
-                  __fmul_rn(ps[6], hi.z), __fmul_rn(ps[7], hi.w)};
-    float v = tree(q);
-#pragma unroll
-    for (int o = 1; o < kLanes; o *= 2) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
-    r[k] = __fmul_rn(v, __ldg(tab + kTabLag + k));
-  }
-
-  // Levinson-Durbin (every lane, the same values).
   float lpc[kOrder];
-#pragma unroll
-  for (int k = 0; k < kOrder; ++k) lpc[k] = 0.0f;
-  float err = __fadd_rn(r[0], 1e-9f);
-#pragma unroll
-  for (int i = 0; i < kOrder; ++i) {
-    float acc = r[i + 1];
-#pragma unroll
-    for (int j = 0; j < i; ++j) acc = __fadd_rn(acc, __fmul_rn(lpc[j], r[i - j]));
-    const float k = __fdiv_rn(-acc, err);
-    float nxt[kOrder];
-#pragma unroll
-    for (int j = 0; j < i; ++j) nxt[j] = __fadd_rn(lpc[j], __fmul_rn(k, lpc[i - 1 - j]));
-#pragma unroll
-    for (int j = 0; j < i; ++j) lpc[j] = nxt[j];
-    lpc[i] = k;
-    err = __fmul_rn(err, __fsub_rn(1.0f, __fmul_rn(k, k)));
-  }
+  const float err = cepstrum_lpc(ceps, a.tables, lane, psd, lpc);
 
   const float corr = clampf(__fadd_rn(f19, 0.5f), 0.0f, 1.0f);
-  float mine = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kOrder; ++k)
-    if (lane == k) mine = lpc[k];
-  if (lane < kOrder) a.lpc[fi * kOrder + lane] = mine;
+  if (lane < kOrder) a.lpc[fi * kOrder + lane] = lane_tap(lpc, lane);
   if (lane == kOrder) {
     const float e = err < 1e-12f ? 1e-12f : err;
     // torch divides a CUDA tensor by a scalar as a product with its float reciprocal.
@@ -500,7 +402,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 dsp_synthesis_kernel(Args a) {
   // Phase A's PSD staging (256 floats a warp) and phase D's ring of records share it.
   constexpr int kShared =
-      kWarps * 256 > kSlots * kChunk * kRec ? kWarps * 256 : kSlots * kChunk * kRec;
+      kWarps * kPsd > kSlots * kChunk * kRec ? kWarps * kPsd : kSlots * kChunk * kRec;
   __shared__ __align__(16) float sh[kShared];
   __shared__ __align__(16) float sh_x[kRow];
   cg::cluster_group cluster = cg::this_cluster();
@@ -521,7 +423,7 @@ dsp_synthesis_kernel(Args a) {
     pitch_phases(a, b, lane);
   } else if (a.features && rank > 0) {
     for (int t = warp * (kCluster - 1) + rank - 1; t < T; t += kClusterWarps - kWarps)
-      frame_prologue(a, b, t, lane, sh + warp * 256);
+      frame_prologue(a, b, t, lane, sh + warp * kPsd);
   }
   cluster_barrier(cluster);
   DSP_TRACE(1);

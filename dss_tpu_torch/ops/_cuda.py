@@ -33,6 +33,7 @@ _libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -122,6 +123,12 @@ def library(defines: Sequence[str] = ()) -> ctypes.CDLL:
             lib.dss_bilstm_decoder.restype = _I
             lib.dss_bilstm_plan.argtypes = [_I] * 4 + [_P]
             lib.dss_bilstm_plan.restype = _I
+            lib.dss_cepstrum_lpc.argtypes = [_P, _L, _L, _L, _P, _P, _I, _I,
+                                             _P]
+            lib.dss_cepstrum_lpc.restype = _I
+            lib.dss_deemphasis.argtypes = [_P, _L, _P, _P, _L, _P, _I, _L,
+                                           ctypes.c_float, _P]
+            lib.dss_deemphasis.restype = _I
             _libs[key] = lib
         return _libs[key]
 

@@ -29,6 +29,7 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def _sources():
@@ -77,5 +78,8 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             lib.dss_dsp_synthesis_host.argtypes = [_P] * 10 + [_I] * 2
             lib.dss_dsp_synthesis_host.restype = _I
+            lib.dss_deemphasis_host.argtypes = [_P, _L, _P, _P, _L, _P, _I,
+                                                _L, ctypes.c_float]
+            lib.dss_deemphasis_host.restype = _I
             _lib = lib
         return _lib

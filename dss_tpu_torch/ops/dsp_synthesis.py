@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from . import _cuda, _host
+from .cepstrum_lpc import tables
 
 FRAME = 160      # samples a frame (kFrame in the source)
 ORDER = 16       # LPC taps (kOrder in the source)
@@ -320,25 +321,6 @@ def _check(lpc, gain, v_mix, voiced, period, noise, carry) -> None:
 SCRATCH_PER_FRAME = FRAME + 17 * 20 + ORDER + 2  # floats (the source's layout)
 
 
-def _tables(device) -> torch.Tensor:
-    """The kernel's constant tables in one float32 buffer on ``device``, in
-    the source's layout: the inverse-FFT lags transposed and zero-padded to
-    [17, 256], DCT_MATRIX_32 [18, 32], BAND_MATRIX [18, 161], LAG_WINDOW
-    [17]; each rounded to float32 as vocoder/lpc.py's device constants."""
-    from ..device import device_constant
-    from ..vocoder import lpc
-
-    def make():
-        lags = np.zeros((ORDER + 1, 256), np.float32)
-        lags[:, :lpc.FREQ_SIZE] = np.float32(lpc.IRFFT_LAGS).T
-        return np.concatenate([lags.ravel(),
-                               np.float32(lpc.DCT_MATRIX_32).ravel(),
-                               np.float32(lpc.BAND_MATRIX).ravel(),
-                               np.float32(lpc.LAG_WINDOW)])
-    return device_constant("dsp_synthesis_tables", device, torch.float32,
-                           make)
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address (the kernel reads the
     taps four at a time)."""
@@ -364,7 +346,7 @@ def _launch(B, T, carry, params, noise, features=None, seed=0, frame_ctr=0):
                           device=dev)
     rc = _cuda.library().dss_dsp_synthesis(
         None if features is None else features.data_ptr(),
-        None if features is None else _tables(dev).data_ptr(),
+        None if features is None else tables(dev).data_ptr(),
         lpc.data_ptr(), gain.data_ptr(), v_mix.data_ptr(), voiced.data_ptr(),
         period.data_ptr(), noise.data_ptr(), sig_mem.data_ptr(),
         phase.data_ptr(), deemph.data_ptr(), pcm.data_ptr(),

@@ -774,7 +774,7 @@ class FusedDecoderVocoder(Unit):
         is synthesized for state continuity but ships nothing.
 
         Tails run when they are read, not all queued behind the head: a
-        chunk is some 450 small launches, and queueing a word's tails
+        chunk is some 120 small launches, and queueing a word's tails
         fills the CUDA launch queue, which blocks the host — and the head's
         read — until the card has drained most of them."""
         c = self._chunk

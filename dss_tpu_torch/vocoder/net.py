@@ -16,7 +16,9 @@ dss_tpu/vocoder/net.py).
 
 Parameters stay a dict of tensors in the JAX package's layouts ([in, out]
 matrices), so checkpoints and the tests carry over unchanged.  The sample
-loop runs in the sampler kernel (ops/sampler.py) in fixed 50-frame blocks.
+loop runs in the sampler kernel (ops/sampler.py) in fixed 50-frame blocks,
+each block's LPC in one launch before it (ops/cepstrum_lpc.py) and its
+de-emphasis in one after it (ops/deemphasis.py).
 """
 
 from __future__ import annotations
@@ -26,13 +28,14 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import device_constant, resolve_device
+from ..device import resolve_device
+from ..ops import cepstrum_lpc as _cepstrum_lpc
+from ..ops import deemphasis as _deemphasis
 # The module, not its names: ops/sampler.py imports vocoder/mulaw.py, so
 # either of the two may be half-imported when this line runs.
 from ..ops import sampler as _sampler
 from ..utils import tracing
-from .lpc import FRAME_SIZE, LPC_ORDER, NB_BANDS, NB_FEATURES, PREEMPH, \
-    bands_from_cepstrum, lpc_from_bands
+from .lpc import FRAME_SIZE, LPC_ORDER, NB_BANDS, NB_FEATURES
 from .mulaw import MULAW_LEVELS, mulaw_decode, mulaw_encode
 
 EMBED_DIM = 128
@@ -378,38 +381,6 @@ def gumbel_noise(seed: int, first_frame: int, frames: int, batch: int,
     return g.reshape(frames, FRAME_SIZE, batch, MULAW_LEVELS)
 
 
-def _deemph_constants(L: int):
-    """(M^T, a^(k+1), Q^T, A^(j+1)) of ``deemphasis`` for L frames, in
-    float64: M [160, 160] with M[k, m] = a^(k-m) for m <= k, and Q [L, L]
-    the same over frames with A = a^160."""
-    k = np.arange(FRAME_SIZE)
-    d = k[:, None] - k[None, :]
-    M = np.where(d >= 0, PREEMPH ** np.maximum(d, 0), 0.0)
-    A = PREEMPH ** FRAME_SIZE
-    j = np.arange(L)
-    dj = j[:, None] - j[None, :]
-    Q = np.where(dj >= 0, A ** np.maximum(dj, 0), 0.0)
-    return M.T, PREEMPH ** (k + 1.0), Q.T, A ** (j + 1.0)
-
-
-def deemphasis(sig: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
-    """y[t] = sig[t] + PREEMPH * y[t-1] over sig [B, L*FRAME_SIZE] from
-    y[-1] = y0 [B], in an exact blocked form: a [160 x 160] lower-triangular
-    Toeplitz product inside each frame, then the frame-end carries through
-    an [L x L] one — four launches instead of a serial loop.  Equal to the
-    sequential recurrence up to float32 rounding (~1e-6)."""
-    B, N = sig.shape
-    L = N // FRAME_SIZE
-    M_t, a_k, Q_t, a_j = (
-        device_constant(("deemph", L, i), sig.device, sig.dtype,
-                        lambda i=i: _deemph_constants(L)[i])
-        for i in range(4))
-    z = sig.reshape(B, L, FRAME_SIZE) @ M_t          # in-frame responses
-    c = z[..., -1] @ Q_t + a_j * y0[:, None]         # y at each frame end
-    c_prev = torch.cat([y0[:, None], c[:, :-1]], dim=1)
-    return (z + c_prev[..., None] * a_k).reshape(B, N)
-
-
 @torch.no_grad()
 def net_synthesize_frames(model: LPCNetModel, params: Params,
                           state: NetVocoderState, features: torch.Tensor,
@@ -441,7 +412,7 @@ def net_synthesize_frames(model: LPCNetModel, params: Params,
         feats_ctx_all = torch.cat([state.feat_mem, features], dim=1)
         carry = (state.h_a, state.h_b, state.sig_mem, state.exc_idx)
         deemph = state.deemph
-        parts = []
+        pcm = torch.empty((B, T * FRAME_SIZE), device=features.device)
         for s in range(0, T, block):
             L = min(block, T - s)
             feats_ctx = feats_ctx_all[:, s:s + FEAT_CONTEXT + L]
@@ -449,8 +420,7 @@ def net_synthesize_frames(model: LPCNetModel, params: Params,
             with tracing.span("vocoder.condition"):
                 cond = model.condition(params, feats_ctx)[:, FEAT_CONTEXT:]
             with tracing.span("vocoder.lpc"):
-                lpc, _ = lpc_from_bands(
-                    bands_from_cepstrum(feats[..., :NB_BANDS]))
+                lpc = _cepstrum_lpc.lpc_frames(feats)
             if greedy:
                 temp = torch.full((B, L), -1.0, device=features.device)
                 noise = None
@@ -469,14 +439,12 @@ def net_synthesize_frames(model: LPCNetModel, params: Params,
                                           state.slots))
             with tracing.span("vocoder.sampler"):
                 carry, sig = run_sampler(
-                    w, carry, cond.transpose(0, 1).contiguous(),
-                    lpc.transpose(0, 1).contiguous(),
+                    w, carry, cond.transpose(0, 1).contiguous(), lpc,
                     temp.transpose(0, 1).contiguous(), noise, FRAME_SIZE)
             with tracing.span("vocoder.deemph"):
-                y = deemphasis(sig, deemph)
-                deemph = y[:, -1]
-                parts.append(torch.clamp(y, -1.0, 1.0))
-        pcm = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+                y = pcm[:, s * FRAME_SIZE:(s + L) * FRAME_SIZE]
+                deemph = _deemphasis.deemphasis(sig, deemph, y)
+                y.clamp_(-1.0, 1.0)
     h_a, h_b, sig_mem, exc_idx = carry
     return pcm, NetVocoderState(
         h_a=h_a, h_b=h_b, sig_mem=sig_mem, exc_idx=exc_idx,

@@ -9,6 +9,7 @@ that machine lacks, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+from functools import lru_cache
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +20,8 @@ from dss_tpu_torch.device import resolve_device
 from dss_tpu_torch.ops.dsp_synthesis import DspCarry, dsp_synthesis, \
     dsp_synthesis_blocked_plain, dsp_synthesis_host, dsp_vocode
 from dss_tpu_torch.ops import hga as thga
+from dss_tpu_torch.ops.cepstrum_lpc import lpc_frames, lpc_frames_plain
+from dss_tpu_torch.ops.deemphasis import deemphasis, deemphasis_plain
 from dss_tpu_torch.ops.filter_log_power import filter_log_power, \
     filter_log_power_plain
 from dss_tpu_torch.ops.frames import log_power_frames
@@ -539,6 +542,173 @@ def test_dsp_synthesis_kernel_refuses_what_it_does_not_take(dev):
 
 
 # ---- the training path -------------------------------------------------------
+
+@lru_cache(maxsize=1)
+def _speech_features():
+    """[300, 20] features of 3 s of formant-synthesized speech
+    (tools/make_speech_corpus.py) through the port's feature encoder on the
+    CPU: cepstra of real spectral shapes, where Levinson is far worse
+    conditioned than on random cepstra."""
+    import importlib.util
+    import sys
+    from dss_tpu_torch.vocoder.features import LPCFeatureEncoder
+    spec = importlib.util.spec_from_file_location(
+        "make_speech_corpus", REPO / "tools" / "make_speech_corpus.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    pcm = mod.synth_utterance(np.random.default_rng(7), 3.0)
+    return torch.as_tensor(
+        LPCFeatureEncoder(device="cpu").compute_LPC_features(pcm))
+
+
+def _lpc_features(batch, frames, seed):
+    """[batch, frames + 2, 20]: even streams windows of the speech
+    features, odd streams seeded random cepstra (scale 0.3, c0 - 4, as the
+    serving cells draw them)."""
+    speech = _speech_features()
+    g = torch.Generator().manual_seed(seed)
+    out = torch.randn((batch, frames + 2, 20), generator=g) * 0.3
+    out[..., 0] -= 4.0
+    for b in range(0, batch, 2):
+        idx = (torch.arange(frames + 2) + 37 * b) % speech.shape[0]
+        out[b] = speech[idx]
+    return out
+
+
+@pytest.mark.parametrize("batch, frames", [(1, 1), (1, 37), (1, 50),
+                                           (1, 300), (15, 50), (16, 50),
+                                           (16, 37), (15, 300)])
+def test_lpc_kernel_matches_plain(dev, batch, frames):
+    """D4 against its plain version, ``lpc_from_cepstrum_framewise``, on the
+    same CUDA tensor: the taps in [L, B, 16] bit for bit, one launch, for
+    the strided view the vocoder passes (features after two context
+    frames) and for a time-major tensor seen as [B, L, 20]; on the random
+    cepstra within 1e-5 of the library route ``lpc_from_bands
+    (bands_from_cepstrum(.))`` (on the speech frames the two float32 routes
+    part by up to ~1e-2: Levinson is ill-conditioned there)."""
+    feats = _lpc_features(batch, frames, 100 + frames).to(dev)
+    view = feats[:, 2:]
+    before = lpc_frames.launches
+    got = lpc_frames(view)
+    torch.cuda.synchronize()
+    assert lpc_frames.launches == before + 1
+    assert got.shape == (frames, batch, 16) and got.is_contiguous()
+    want = lpc_frames_plain(view)
+    assert torch.equal(got, want)
+    time_major = view.transpose(0, 1).contiguous().transpose(0, 1)
+    assert torch.equal(lpc_frames(time_major), got)
+    lib, _ = lpc_from_bands(bands_from_cepstrum(view[..., :18]))
+    rand = slice(1, None, 2)
+    torch.testing.assert_close(got[:, rand], lib.transpose(0, 1)[:, rand],
+                               atol=1e-5, rtol=0)
+
+
+def test_lpc_kernel_chunks_and_shards_equal_one_call(dev):
+    """D4's taps of a frame depend on that frame alone: 100 frames equal
+    50 + 50, and slots 4..7 of an 8-stream call equal the 4-stream
+    shard's, bit for bit."""
+    feats = _lpc_features(8, 100, 5).to(dev)[:, 2:]
+    whole = lpc_frames(feats)
+    halves = torch.cat([lpc_frames(feats[:, :50]),
+                        lpc_frames(feats[:, 50:])])
+    assert torch.equal(halves, whole)
+    assert torch.equal(lpc_frames(feats[4:]), whole[:, 4:])
+
+
+def test_net_synthesis_shard_rows_equal_the_batch_rows_on_the_card(dev):
+    """Through ``net_synthesize_frames`` on the shipped checkpoint (D4 and
+    K2): slots 4..7 of an 8-stream batch, vocoded alone from the sharded
+    state, give the batch's audio for those slots bit for bit."""
+    params = _load_params(REPO / "weights" / "vocoder_speech.npz", dev)
+    model = tnet.LPCNetModel.from_params(params)
+    w = tnet.sampler_weights_for(model, params)
+    feats = _lpc_features(8, 50, 6).to(dev)[:, 2:]
+    state = tnet.net_vocoder_init(model, 8, seed=2, device=dev)
+    whole, _ = tnet.net_synthesize_frames(model, params, state, feats,
+                                          sampler_weights=w)
+    rows = {k: (v[4:] if isinstance(v, torch.Tensor) else v)
+            for k, v in state._asdict().items()}
+    shard = tnet.NetVocoderState(**{**rows, "slot_lo": 4, "slots": 8})
+    part, _ = tnet.net_synthesize_frames(model, params, shard, feats[4:],
+                                         sampler_weights=w)
+    assert torch.equal(part, whole[4:])
+
+
+def test_lpc_kernel_refuses_what_it_does_not_take(dev):
+    """On CUDA tensors D4 launches or raises: float64 input and fewer than
+    18 columns are refused; an empty block launches nothing."""
+    feats = _lpc_features(2, 3, 0).to(dev)
+    for bad in (feats.double(), feats[..., :17]):
+        with pytest.raises(ValueError):
+            lpc_frames(bad)
+    before = lpc_frames.launches
+    assert lpc_frames(feats[:, :0]).shape == (0, 2, 16)
+    assert lpc_frames.launches == before
+
+
+@pytest.mark.parametrize("name", ["vocoder_speech.npz",
+                                  "vocoder_speech_b8.npz"])
+def test_net_synthesis_launches_lpc_and_deemphasis_once_a_block(dev, name):
+    """``net_synthesize_frames`` on the card at bunch 1 and at S = 8, two
+    streams, 120 frames (blocks of 50, 50, 20): D4 and D5 once a block
+    each, as many launches as the sampler's."""
+    params = _load_params(REPO / "weights" / name, dev)
+    model = tnet.LPCNetModel.from_params(params)
+    kernel = sampler_frames if model.bunch == 1 else sampler_frames_bunched
+    feats = _lpc_features(2, 120, 9).to(dev)[:, 2:]
+    st = tnet.net_vocoder_init(model, 2, seed=4, device=dev)
+    before = (lpc_frames.launches, deemphasis.launches, kernel.launches)
+    tnet.net_synthesize_frames(model, params, st, feats)
+    torch.cuda.synchronize()
+    assert (lpc_frames.launches - before[0], deemphasis.launches - before[1],
+            kernel.launches - before[2]) == (3, 3, 3)
+
+
+@pytest.mark.parametrize("batch, n", [(1, 160), (1, 8000), (15, 8000),
+                                      (16, 8000), (2, 48000), (3, 5003)])
+def test_deemphasis_kernel_matches_plain(dev, batch, n):
+    """D5 against its plain version (numpy) and the host loop: y and the
+    carry bit for bit, one launch, from rows of a wider buffer into a
+    column slice of another (the net path's layout); n = 48000 spans many
+    staged tiles, and 5003 ends in a partial tile and a partial run of
+    eight."""
+    g = torch.Generator().manual_seed(batch * n)
+    wide = torch.randn((batch, n + 5), generator=g) * 0.3
+    y0 = torch.randn((batch,), generator=g)
+    sig = wide.to(dev)[:, 2:2 + n]
+    buf = torch.full((batch, n + 320), float("nan"), device=dev)
+    before = deemphasis.launches
+    last = deemphasis(sig, y0.to(dev), buf[:, 160:160 + n])
+    torch.cuda.synchronize()
+    assert deemphasis.launches == before + 1
+    want = deemphasis_plain(wide[:, 2:2 + n].numpy(), y0.numpy())
+    assert np.array_equal(buf[:, 160:160 + n].cpu().numpy(), want)
+    assert np.array_equal(last.cpu().numpy(), want[:, -1])
+    assert torch.isnan(buf[:, :160]).all() and torch.isnan(buf[:, -160:]).all()
+    host = torch.empty((batch, n))
+    host_last = deemphasis(wide[:, 2:2 + n], y0, host)
+    assert np.array_equal(host.numpy(), want)
+    assert torch.equal(host_last, last.cpu())
+
+
+def test_deemphasis_kernel_splits_equal_one_call(dev):
+    """D5 over a stream cut into calls at any samples (each from the carry
+    the one before returned) and over shards of a batch gives one call's
+    bits."""
+    g = torch.Generator().manual_seed(3)
+    sig = (torch.randn((8, 8000), generator=g) * 0.3).to(dev)
+    y0 = torch.randn((8,), generator=g).to(dev)
+    whole = torch.empty_like(sig)
+    last = deemphasis(sig, y0, whole)
+    parts, carry = torch.empty_like(sig), y0
+    for a, b in ((0, 1), (1, 160), (160, 4321), (4321, 8000)):
+        carry = deemphasis(sig[:, a:b], carry, parts[:, a:b])
+    assert torch.equal(parts, whole) and torch.equal(carry, last)
+    shard = torch.empty_like(sig[4:])
+    assert torch.equal(deemphasis(sig[4:], y0[4:], shard), last[4:])
+    assert torch.equal(shard, whole[4:])
+
 
 def test_front_end_kernel_on_a_whole_trial_at_128_channels(dev):
     """Corpus preparation's shape: one 3040-sample trial at 128 channels

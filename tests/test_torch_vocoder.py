@@ -23,6 +23,7 @@ from dss_tpu.vocoder import lpc as jlpc  # noqa: E402
 from dss_tpu.vocoder import mulaw as jmu  # noqa: E402
 from dss_tpu.vocoder import net as jnet  # noqa: E402
 from dss_tpu_torch.convert import vocoder_params  # noqa: E402
+from dss_tpu_torch.ops.deemphasis import deemphasis  # noqa: E402
 from dss_tpu_torch.ops.sampler import prepare_sampler_weights, \
     sampler_frames, tile_sparse_pattern  # noqa: E402
 from dss_tpu_torch.vocoder import lpc as tlpc  # noqa: E402
@@ -109,9 +110,9 @@ def test_lpc_from_random_cepstra_matches_jax(rng):
 
 
 def test_deemphasis_blocked_equals_recurrence(rng):
-    """The blocked Toeplitz de-emphasis equals the sequential recurrence
-    y[t] = s[t] + 0.85 y[t-1] (float64 reference); atol 1e-5 (f32 sums of
-    up to 160 terms, |y| <= 6.7)."""
+    """The port's de-emphasis (the float32 recurrence, on the CPU the host
+    loop) equals the recurrence y[t] = s[t] + 0.85 y[t-1] in float64, y and
+    the returned carry y[-1]; atol 1e-5 (|y| <= 6.7)."""
     s = rng.uniform(-1, 1, size=(2, 3 * 160)).astype(np.float32)
     y0 = np.array([0.3, -2.0], np.float32)
     want = np.zeros(s.shape)
@@ -119,8 +120,10 @@ def test_deemphasis_blocked_equals_recurrence(rng):
     for t in range(s.shape[1]):
         prev = s[:, t] + 0.85 * prev
         want[:, t] = prev
-    got = tnet.deemphasis(_t(s), _t(y0)).numpy()
-    np.testing.assert_allclose(got, want, atol=1e-5)
+    got = torch.empty(s.shape)
+    last = deemphasis(_t(s), _t(y0), got)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    np.testing.assert_allclose(last.numpy(), want[:, -1], atol=1e-5)
 
 
 @pytest.mark.parametrize("inner_bias", [False, True])
