@@ -2169,7 +2169,7 @@ def main(report_path=None) -> int:
             _pred, feats = words._padded_features(seg, len(seg))
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            words._vocode(words._voc_state, feats[:, :50])[0].cpu()
+            words._voc.vocode(feats[:, :50]).cpu()
             t2 = time.perf_counter()
             split["decode_ms"].append((t1 - t0) * 1e3)
             split["vocode_chunk_ms"].append((t2 - t1) * 1e3)
@@ -3598,14 +3598,13 @@ def main(report_path=None) -> int:
                         with tempfile.TemporaryDirectory() as tdir:
                             with device_trace(tdir):
                                 t0 = time.perf_counter()
-                                lpc_c, a0, pending, Ts = \
-                                    chunked._decode_head(seg)
+                                lpc_c, a0, n_chunks, word = \
+                                    chunked._head(seg)
                                 head_ms = (time.perf_counter() - t0) * 1e3
                                 parts, tail_ms = [a0], []
-                                for k, f in enumerate(pending, start=1):
+                                for k in range(1, n_chunks):
                                     t0 = time.perf_counter()
-                                    parts.append(
-                                        chunked._read_chunk(f, k, Ts))
+                                    parts.append(chunked._tail(word, k))
                                     tail_ms.append(
                                         (time.perf_counter() - t0) * 1e3)
                             (path,) = trace_files(tdir)
@@ -3613,9 +3612,9 @@ def main(report_path=None) -> int:
                         launched = read_counts()[kernel] - before
                         sampler = [v for n, v in traced["by_name"].items()
                                    if "lpcnet_sampler" in n]
-                        lpc_s, a0_s = single._decode_and_vocode(seg)
-                        bg = {i: np.concatenate(p)
-                              for i, p in chunked._bg_parts.items()}
+                        Ts = word[0]
+                        lpc_s, a0_s, _, _ = single._head(seg)
+                        bg = chunked.slot_audio
                         same = np.array_equal(lpc_c, lpc_s) and \
                             np.array_equal(np.concatenate(parts), a0_s) \
                             and all(np.array_equal(bg[i],

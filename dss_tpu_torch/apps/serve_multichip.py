@@ -6,11 +6,11 @@
         [--weights W.npz] [--device cuda|cpu]
 
 Each rank serves S streams, its slots of the N x S-stream batch
-(parallel/shard.py's ``batched_vocoder_sharding``): one
-``net_synthesize_frames`` call a serving step, which on the card is the
-sampler kernel (K2, or K3 at the checkpoint's bunch) at B = S.  No
-stream's state leaves its rank; the ranks meet only at the barriers around
-the timing and to gather the result.
+(parallel/shard.py's layout): one call of its ``Vocoder``
+(vocoder/lpcnet.py) a serving step, which on the card is the sampler
+kernel (K2, or K3 at the checkpoint's bunch) at B = S.  No stream's state
+leaves its rank; the ranks meet only at the barriers around the timing and
+to gather the result.
 
 Under torchrun (one process a card, NCCL) the world size comes from the
 environment:
@@ -65,51 +65,41 @@ def parse_args(argv=None) -> argparse.Namespace:
 def serve(args: argparse.Namespace) -> Optional[dict]:
     """One rank's serving loop, in a process group that exists (or a
     world of one that ``make_mesh`` starts); rank 0 returns the result."""
-    from ..parallel import batched_vocoder_sharding, make_mesh
+    from ..parallel import make_mesh, shard_batch
     from ..parallel.mesh import axis, mesh_device
-    from ..vocoder.lpcnet import _load_params
-    from ..vocoder.net import LPCNetModel, net_synthesize_frames, \
-        net_vocoder_init, sampler_weights_for
+    from ..vocoder.lpcnet import Vocoder
+    from ..vocoder.net import LPCNetModel
 
     mesh = make_mesh(args.devices, model_parallel=1, device=args.device)
     world, rank, group = axis(mesh, "data")
     dev = mesh_device(mesh)
-    streams = world * args.streams_per_device
-    if args.weights:
-        params = _load_params(args.weights, dev)
-        # The architecture (the bunch too) rides in the checkpoint.
-        model = LPCNetModel.from_params(params)
-    else:
-        model = LPCNetModel()
-        params = model.init(torch.Generator().manual_seed(0), dev)
-    w = sampler_weights_for(model, params)
+    S = args.streams_per_device
+    streams = world * S
+    # The architecture (the bunch too) rides in the checkpoint.
+    weights = args.weights or LPCNetModel().init(
+        torch.Generator().manual_seed(0), dev)
+    voc = Vocoder(S, "net", weights, device=dev, slot_lo=rank * S,
+                  slots=streams)
     features = np.random.default_rng(0).normal(
         scale=0.3, size=(streams, args.frames, 20)).astype(np.float32)
-    state, feats = batched_vocoder_sharding(
-        mesh, net_vocoder_init(model, batch=streams, device=dev), features)
-
-    def step(state):
-        return net_synthesize_frames(model, params, state, feats,
-                                     sampler_weights=w)
+    feats = shard_batch(mesh, features)
 
     def barrier():
         if world > 1:
             dist.barrier(group=group)
 
-    pcm, state = step(state)  # warm: the sampler's weight layout
-    pcm.cpu()
+    voc.vocode(feats).cpu()  # warm: the sampler's weight layout
     # One step with the read-back (the latency a caller sees a dispatch)...
     barrier()
     t0 = time.perf_counter()
-    pcm, state = step(state)
-    pcm.cpu()
+    voc.vocode(feats).cpu()
     dt_single = time.perf_counter() - t0
     # ...and the marginal cost of chained steps behind one read.
     n = max(args.steps, 2)
     barrier()
     t0 = time.perf_counter()
     for _ in range(n):
-        pcm, state = step(state)
+        pcm = voc.vocode(feats)
     pcm.cpu()
     dt_chain = time.perf_counter() - t0
     times = torch.tensor([dt_single, max((dt_chain - dt_single) / (n - 1),
@@ -118,13 +108,14 @@ def serve(args: argparse.Namespace) -> Optional[dict]:
     parts = None
     if world > 1:  # the slowest rank sets the pace; rank 0 gets the audio
         dist.all_reduce(times, op=dist.ReduceOp.MAX, group=group)
-        parts = [torch.empty_like(pcm) for _ in range(world)] \
+        packed = pcm.view(torch.float32)  # int16 pairs: NCCL has no int16
+        parts = [torch.empty_like(packed) for _ in range(world)] \
             if rank == 0 else None
-        dist.gather(pcm.contiguous(), parts, dst=dist.get_global_rank(
-            group, 0), group=group)
+        dist.gather(packed, parts, dst=dist.get_global_rank(group, 0),
+                    group=group)
     if rank != 0:
         return None
-    pcm = torch.cat(parts) if parts is not None else pcm
+    pcm = torch.cat(parts).view(torch.int16) if parts is not None else pcm
     dt_single, dt = times.tolist()
     total_frames = streams * args.frames
     return {

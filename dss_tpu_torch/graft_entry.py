@@ -12,10 +12,10 @@ mesh on NCCL or gloo), at the JAX dry run's tiny widths and with its
 asserts: the data x gate-parallel decoder step, the nVAD TBPTT step, the
 data-parallel vocoder step, batched vocoder serving at bunch 2 (the
 sampler kernel K3 on the card), ``sharded_fused_word_path``,
-``ShardedFusedDecoderVocoder._decode_and_vocode`` and distinct-slot
-chunked serving.  In the two unit steps the unit serves one slot a rank
-(the JAX unit one a data coordinate): rank 0 serves and every other rank
-runs the unit's worker loop::
+``ShardedFusedDecoderVocoder``'s word head (the word as one chunk) and
+distinct-slot chunked serving.  In the two unit steps the unit serves one
+slot a rank (the JAX unit one a data coordinate): rank 0 serves and every
+other rank runs the unit's worker loop::
 
     python -m dss_tpu_torch.graft_entry [--device cpu]     # world 1
     torchrun --nproc-per-node N -m dss_tpu_torch.graft_entry
@@ -173,7 +173,8 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     u6 = unit(vocoder_weights=None, length_multiple=4)
     seg6 = (rng.normal(size=(3, E)) * 0.1).astype(np.float32)
     if lead:
-        g_lpc, g_audio = u6._decode_and_vocode(seg6)
+        g_lpc, g_audio, n_chunks, _ = u6._head(seg6)
+        assert n_chunks == 1
         assert g_lpc.shape == (3, 20) and g_audio.shape == (3 * 160,)
         assert g_audio.dtype == np.int16
         out["graph_shapes"] = (g_lpc.shape, g_audio.shape)
@@ -194,19 +195,19 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
                               .items()})
         u7 = unit(vocoder_weights=tiny_voc, length_multiple=50,
                   slot_feeder=lambda n, t: bg[:n])
-    assert u7._chunked
+    assert u7._chunk == 50
     live = (rng.normal(size=(60, E)) * 0.1).astype(np.float32)
     if lead:
-        d_lpc, d_audio0, d_pending, d_Ts = u7._decode_head(live)
-        for k, b in enumerate(d_pending, start=1):
-            u7._read_chunk(b, k, d_Ts)
+        d_lpc, d_audio0, n_chunks, word = u7._head(live)
+        for k in range(1, n_chunks):
+            u7._tail(word, k)
         assert d_lpc.shape == (60, 20) and len(d_audio0) == 50 * 160
-        assert len(d_pending) == 1  # Tp = 100: head chunk + one tail chunk
-        bg_audio = {i: np.concatenate(p) for i, p in u7._bg_parts.items()}
+        assert n_chunks == 2  # Tp = 100: head chunk + one tail chunk
+        bg_audio = u7.slot_audio
         assert len(bg_audio) == slots - 1
         assert all(len(bg_audio[i + 1]) == len(bg[i]) * 160
                    for i in range(slots - 1))
-        out["chunked"] = dict(head=len(d_audio0), tails=len(d_pending),
+        out["chunked"] = dict(head=len(d_audio0), tails=n_chunks - 1,
                               slots=slots)
     else:
         u7.run_worker()

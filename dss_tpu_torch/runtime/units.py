@@ -50,10 +50,9 @@ from ..models.torch_port import load_checkpoint
 from ..ops.hga import HighGammaExtractor
 from ..ops.ringbuffer import SpeechSegmentHistory, VoiceActivityDetectionSmoothing
 from ..utils import tracing
-from ..vocoder.dsp import dsp_synthesize_frames, dsp_vocoder_init
-from ..vocoder.lpcnet import LPCNet, _load_params, _sparse_pattern_of
+from ..vocoder.lpcnet import LPCNet, Vocoder
 from ..vocoder.net import COND_BLOCK, FRAME_SIZE, LPCNetModel, \
-    net_synthesize_frames, net_vocoder_init, sampler_weights_for
+    net_synthesize_frames
 from .graph import InputStream, OutputStream, Settings, Unit, coalescing, \
     publisher, subscriber
 from .messages import ClosedLoopMessage, TimeSeriesMessage
@@ -621,6 +620,78 @@ class FilterSpeechSegments(Unit):
 
 
 # region Fused word path
+class _WordVocoder(Vocoder):
+    """The word units' vocoder.  Its neural synthesis looks up
+    ``net_synthesize_frames`` in this module at call time, so that one name
+    (``runtime.units.net_synthesize_frames``, which the benchmark's fault
+    checks replace) reaches both word units."""
+
+    @staticmethod
+    def _net_synthesize(*args, **kw):
+        return net_synthesize_frames(*args, **kw)
+
+
+async def _emit_word(unit, msg) -> AsyncGenerator:
+    """A word unit's messages for one segment, from ``unit._head(data)``
+    -> (the word's features, its first chunk's audio, the number of chunks,
+    what the tails need) and ``unit._tail(word, k)`` -> chunk k's audio,
+    each run on the unit's executor.  The features go on LPC; the first
+    chunk on OUTPUT with the word's latency stamps; each later chunk
+    anonymized, an all-pad one (no audio) only when it is the last, and the
+    last of several stamped ``dv_word_complete``; the whole word on WORD,
+    anonymized."""
+    loop = asyncio.get_running_loop()
+    data = np.asarray(msg.data, np.float32)
+    key = getattr(msg, "previous_frames", None)  # the word's id in spans
+    t_dispatch = time.time()
+    (lpc, audio0, n_chunks, word), t_done = await loop.run_in_executor(
+        unit._executor, _word_head, unit, data, key)
+    yield unit.LPC, replace(msg, data=lpc, fs=100)
+    yield unit.OUTPUT, _with_stamps(msg, (("dv_dispatch", t_dispatch),
+                                          ("dv_device_done", t_done)),
+                                    data=audio0, fs=16000)
+    parts = [audio0]
+    for k in range(1, n_chunks):
+        audio_k = await loop.run_in_executor(unit._executor, _word_tail,
+                                             unit, word, k, key)
+        parts.append(audio_k)
+        if k == n_chunks - 1:
+            yield unit.OUTPUT, _with_stamps(
+                msg, (("dv_dispatch", t_dispatch),
+                      ("dv_word_complete", time.time())),
+                data=audio_k, fs=16000)
+        elif len(audio_k):
+            yield unit.OUTPUT, _anonymize(msg, data=audio_k, fs=16000)
+    yield unit.WORD, _anonymize(msg, data=np.concatenate(parts), fs=16000)
+
+
+def _word_head(unit, data: np.ndarray, key):
+    """(``unit._head(data)``, the time its read landed), in the
+    ``units.word_head`` span; the wall time goes to ``unit.word_ms``
+    (segment in -> first audio read)."""
+    t0 = time.perf_counter()
+    with tracing.span("units.word_head", key=key, frames=len(data)):
+        out = unit._head(data)
+        t_done = time.time()
+    unit.word_ms.append((time.perf_counter() - t0) * 1000.0)
+    return out, t_done
+
+
+def _word_tail(unit, word, k: int, key):
+    with tracing.span("units.word_tail", key=key, chunk=k):
+        return unit._tail(word, k)
+
+
+def _read_word(pred: torch.Tensor, bits: torch.Tensor):
+    """A word head's one device->host read of its features ``pred`` [T, F]
+    and its audio ``bits`` (int16 PCM packed as float32 pairs) -> (the
+    features, the int16 audio)."""
+    with tracing.span("units.word_read"):
+        packed = torch.cat([pred.reshape(-1), bits.reshape(-1)]).cpu().numpy()
+    n = pred.numel()
+    return packed[:n].reshape(pred.shape), packed[n:].view(np.int16)
+
+
 class FusedDecoderVocoderSettings(Settings):
     """Bidirectional decode + vocoder per word."""
 
@@ -636,7 +707,7 @@ class FusedDecoderVocoderSettings(Settings):
     prewarm_frames: Tuple[int, ...] = (50, 150, 200, 250, 300)
     # Ship the first 50-frame chunk of a word as soon as it is vocoded;
     # later chunks follow as each lands.  Needs length_multiple % 50 == 0
-    # and the net backend.
+    # and the net backend; otherwise the word is one chunk.
     chunk_emission: bool = True
     # Online anti-crackle squelch (vocoder/net.py QUIET_C0).
     quiet_sharpen: bool = True
@@ -663,27 +734,17 @@ class FusedDecoderVocoder(Unit):
 
     def initialize(self) -> None:
         s = self.SETTINGS
-        if s.vocoder_backend not in ("dsp", "net"):
-            raise ValueError(f"Unknown vocoder backend: {s.vocoder_backend}")
-        self._dsp = s.vocoder_backend == "dsp"
-        if not self._dsp and s.vocoder_weights is None:
-            raise ValueError("FusedDecoderVocoder needs vocoder_weights")
         self._device = resolve_device(s.device)
         self._model = _load_lstm(s.model, s.params, s.path_to_model_weights,
                                  True, "regressor", self._device)
-        if not self._dsp:
-            self._voc_params = _load_params(s.vocoder_weights, self._device)
-            self._voc_model = LPCNetModel.from_params(self._voc_params)
-            self._sampler_w = sampler_weights_for(self._voc_model,
-                                                  self._voc_params)
-            _pattern, kept = _sparse_pattern_of(self._voc_params)
-            logger.info(f"vocoder bunch {self._voc_model.bunch}; GRU-A mask "
-                        f"keeps {kept:.1%} of [16 x 128] tiles (the sampler "
-                        f"kernel reads only those)")
-        self._voc_state = self._fresh_vocoder_state()
-        self._chunk = COND_BLOCK
-        self._chunked = not self._dsp and bool(s.chunk_emission) \
-            and s.length_multiple % COND_BLOCK == 0
+        # dsp: LPCNet(backend="dsp", seed=0)'s stream.
+        self._voc = _WordVocoder(1, s.vocoder_backend, s.vocoder_weights,
+                                 quiet_sharpen=s.quiet_sharpen,
+                                 device=self._device)
+        dsp = self._voc.backend == "dsp"
+        # A word's chunk: COND_BLOCK frames, or None, the whole padded word.
+        self._chunk = COND_BLOCK if not dsp and s.chunk_emission \
+            and s.length_multiple % COND_BLOCK == 0 else None
         self.word_ms: List[float] = []  # segment in -> first audio read
         # Warm the decoder once, at the largest bucket (on the card: the
         # kernel's first launch and its scratch at the largest size), on
@@ -695,16 +756,14 @@ class FusedDecoderVocoder(Unit):
         # The vocoder: net on one block (every chunk has the same 50-frame
         # shape); dsp at every bucket (the frame-rate part's inverse FFT
         # has a cuFFT plan per frame count), as the JAX unit warms it.
-        for n in (buckets if self._dsp else (self._chunk,)):
-            self._vocode(self._fresh_vocoder_state(),
-                         torch.zeros((1, n, 20), device=self._device)
-                         )[0].cpu()
+        for n in (buckets if dsp else (COND_BLOCK,)):
+            self._voc.warm(n)
         self._executor = ThreadPoolExecutor(max_workers=1)
 
-    def _fresh_vocoder_state(self):
-        if self._dsp:  # LPCNet(backend="dsp", seed=0)'s stream
-            return dsp_vocoder_init(0, 1, self._device)
-        return net_vocoder_init(self._voc_model, batch=1, device=self._device)
+    @property
+    def _voc_model(self):
+        """The neural vocoder's model (its ``bunch``)."""
+        return self._voc.model
 
     def shutdown(self) -> None:
         self._executor.shutdown(wait=True)
@@ -713,62 +772,19 @@ class FusedDecoderVocoder(Unit):
         return _decode_padded(self._model, data, T,
                               self.SETTINGS.length_multiple, self._device)
 
-    def _vocode(self, state, feats):
-        """Vocoder on feats [1, n, 20] -> (int16 PCM as packed f32 pairs,
-        new state); the clip -> truncate conversion of the reference's
-        int16 sink."""
-        if self._dsp:
-            pcm, state = dsp_synthesize_frames(state, feats)
-        else:
-            pcm, state = net_synthesize_frames(
-                self._voc_model, self._voc_params, state, feats,
-                quiet_sharpen=self.SETTINGS.quiet_sharpen,
-                sampler_weights=self._sampler_w)
-        pcm16 = torch.clamp(pcm.reshape(-1) * 32767.0, -32768, 32767
-                            ).to(torch.int16)
-        return pcm16.view(torch.float32), state
-
-    def _split(self, packed: np.ndarray, T: int):
-        n = T * self._model.nb_outputs
-        return (packed[:n].reshape(T, self._model.nb_outputs),
-                packed[n:].view(np.int16))
-
-    def _decode_and_vocode(self, data: np.ndarray,
-                           key: Optional[float] = None):
-        """Single shot: decode and vocode the whole word, one read
-        (``key``: the word's id)."""
-        t0 = time.perf_counter()
+    def _head(self, data: np.ndarray):
+        """Decode the word and vocode its first chunk, one read -> (the
+        word's features, the chunk's valid audio, the number of chunks,
+        (the padded features, T, the chunk length) for the tails)."""
         T = len(data)
-        with tracing.span("units.word_head", key=key, frames=T):
-            pred, feats = self._padded_features(data, T)
-            bits, self._voc_state = self._vocode(self._voc_state, feats)
-            with tracing.span("units.word_read"):
-                packed = torch.cat([pred.reshape(-1), bits]).cpu().numpy()
-            self._t_device_done = time.time()
-        self.word_ms.append((time.perf_counter() - t0) * 1000.0)
-        lpc, audio = self._split(packed, T)
-        return lpc, audio[: T * FRAME_SIZE]
+        pred, feats = self._padded_features(data, T)
+        c = self._chunk or feats.shape[1]
+        lpc, audio = _read_word(
+            pred[0], self._voc.vocode(feats[:, :c]).view(torch.float32))
+        return lpc, audio[: min(T, c) * FRAME_SIZE], feats.shape[1] // c, \
+            (feats, T, c)
 
-    def _decode_head(self, data: np.ndarray, key: Optional[float] = None):
-        """Chunked word start: decode, vocode the first chunk, and read
-        back features + that chunk's audio — the one read on the
-        first-audio critical path.  Returns the padded features for the
-        tail chunks (``key``: the word's id)."""
-        t0 = time.perf_counter()
-        T = len(data)
-        with tracing.span("units.word_head", key=key, frames=T):
-            pred, feats = self._padded_features(data, T)
-            bits, self._voc_state = self._vocode(self._voc_state,
-                                                 feats[:, :self._chunk])
-            with tracing.span("units.word_read"):
-                packed = torch.cat([pred.reshape(-1), bits]).cpu().numpy()
-            self._t_device_done = time.time()
-        self.word_ms.append((time.perf_counter() - t0) * 1000.0)
-        lpc, audio0 = self._split(packed, T)
-        return lpc, audio0[: min(T, self._chunk) * FRAME_SIZE], feats, T
-
-    def _tail_chunk(self, feats: torch.Tensor, k: int, T: int,
-                    key: Optional[float] = None) -> np.ndarray:
+    def _tail(self, word, k: int) -> np.ndarray:
         """Vocode and read tail chunk ``k``, trimmed to the word's valid
         frames and clamped at zero: a chunk wholly inside the repeat-pad
         is synthesized for state continuity but ships nothing.
@@ -777,57 +793,16 @@ class FusedDecoderVocoder(Unit):
         chunk is some 120 small launches, and queueing a word's tails
         fills the CUDA launch queue, which blocks the host — and the head's
         read — until the card has drained most of them."""
-        c = self._chunk
-        with tracing.span("units.word_tail", key=key, chunk=k):
-            bits, self._voc_state = self._vocode(
-                self._voc_state, feats[:, k * c:(k + 1) * c])
-            valid = max(0, min(T - k * c, c))
-            return bits.cpu().numpy().view(np.int16)[: valid * FRAME_SIZE]
+        feats, T, c = word
+        audio = self._voc.vocode(feats[:, k * c:(k + 1) * c]).cpu().numpy()
+        return audio[0, : max(0, min(T - k * c, c)) * FRAME_SIZE]
 
     @subscriber(INPUT)
     @publisher(LPC)
     @publisher(OUTPUT)
     @publisher(WORD)
-    async def decode(self, msg: TimeSeriesMessage) -> AsyncGenerator:
-        loop = asyncio.get_running_loop()
-        data = np.asarray(msg.data, np.float32)
-        word = getattr(msg, "previous_frames", None)
-        t_dispatch = time.time()
-        if not self._chunked:
-            lpc, audio = await loop.run_in_executor(
-                self._executor, self._decode_and_vocode, data, word)
-            stamps = (("dv_dispatch", t_dispatch),
-                      ("dv_device_done", self._t_device_done))
-            yield self.LPC, replace(msg, data=lpc, fs=100)
-            yield self.OUTPUT, _with_stamps(msg, stamps, data=audio,
-                                            fs=16000)
-            yield self.WORD, _anonymize(msg, data=audio, fs=16000)
-            return
-
-        lpc, audio0, feats, T = await loop.run_in_executor(
-            self._executor, self._decode_head, data, word)
-        n_chunks = feats.shape[1] // self._chunk
-        stamps = (("dv_dispatch", t_dispatch),
-                  ("dv_device_done", self._t_device_done))
-        yield self.LPC, replace(msg, data=lpc, fs=100)
-        # The first chunk carries the word's latency stamps.
-        yield self.OUTPUT, _with_stamps(msg, stamps, data=audio0, fs=16000)
-        parts = [audio0]
-        for i in range(1, n_chunks):
-            audio_k = await loop.run_in_executor(
-                self._executor, self._tail_chunk, feats, i, T, word)
-            parts.append(audio_k)
-            if len(audio_k) == 0 and i != n_chunks - 1:
-                continue  # all-pad chunk: nothing to ship
-            if i == n_chunks - 1:
-                out = _with_stamps(msg, (("dv_dispatch", t_dispatch),
-                                         ("dv_word_complete", time.time())),
-                                   data=audio_k, fs=16000)
-            else:
-                out = _anonymize(msg, data=audio_k, fs=16000)
-            yield self.OUTPUT, out
-        audio = np.concatenate(parts) if len(parts) > 1 else audio0
-        yield self.WORD, _anonymize(msg, data=audio, fs=16000)
+    def decode(self, msg: TimeSeriesMessage) -> AsyncGenerator:
+        return _emit_word(self, msg)
 # endregion
 
 
@@ -854,8 +829,8 @@ class ShardedFusedDecoderVocoderSettings(Settings):
     # float32 arrays, each slot with its own length.  None replays the live
     # segment into every slot.
     slot_feeder: Optional[Any] = None
-    # 50-frame head and tail chunks, as FusedDecoderVocoder (single-shot
-    # when length_multiple is no multiple of 50).
+    # 50-frame head and tail chunks, as FusedDecoderVocoder (the word as
+    # one chunk when length_multiple is no multiple of 50).
     chunk_emission: bool = True
     quiet_sharpen: bool = True
     device: Optional[str] = None  # None = cuda
@@ -877,7 +852,7 @@ class ShardedFusedDecoderVocoder(Unit):
     slots, with the vocoder state of its streams (noise keyed by global
     slot).  At world 1 every slot runs here, with no collective.  At
     world > 1 rank 0 runs the graph and the other ranks ``run_worker``:
-    rank 0 broadcasts each padded batch and each tail chunk's frames and
+    rank 0 broadcasts each padded batch and each chunk's frames and
     gathers the ranks' packed int16 audio; a stop message ends their loop
     at ``shutdown``.  On rank 0 the
     unit's one-worker executor is the only thread that issues collectives.
@@ -909,22 +884,18 @@ class ShardedFusedDecoderVocoder(Unit):
         self._slots = slice(coord * n, (coord + 1) * n)
         self._model = _load_lstm(s.model, s.params, s.path_to_model_weights,
                                  True, "regressor", self._device)
-        if s.vocoder_weights is not None:
-            self._voc_params = _load_params(s.vocoder_weights, self._device)
-            self._voc_model = LPCNetModel.from_params(self._voc_params)
-        else:
-            self._voc_model = LPCNetModel()
-            self._voc_params = self._voc_model.init(
-                torch.Generator().manual_seed(0), self._device)
-        self._sampler_w = sampler_weights_for(self._voc_model,
-                                              self._voc_params)
-        self._voc_state = self._fresh_vocoder_state()
-        self._chunk = COND_BLOCK
-        self._chunked = bool(s.chunk_emission) \
-            and s.length_multiple % COND_BLOCK == 0
+        weights = s.vocoder_weights if s.vocoder_weights is not None else \
+            LPCNetModel().init(torch.Generator().manual_seed(0), self._device)
+        self._voc = _WordVocoder(n, "net", weights,
+                                 quiet_sharpen=s.quiet_sharpen,
+                                 device=self._device,
+                                 slot_lo=self._slots.start, slots=streams)
+        # A word's chunk: COND_BLOCK frames, or None, the whole padded word.
+        self._chunk = COND_BLOCK if s.chunk_emission \
+            and s.length_multiple % COND_BLOCK == 0 else None
         self._header = torch.zeros(3 + streams, dtype=torch.long,
                                    device=self._device)
-        self.slot_audio: dict = {}  # slot 1.. -> int16 audio of the last word
+        self._bg_parts: dict = {}  # slot 1.. -> the last word's audio chunks
         self.word_ms: List[float] = []  # segment in -> first audio read
         if self._device.type == "cuda":
             # Warm the decoder once at the largest bucket (the kernel's first
@@ -934,22 +905,16 @@ class ShardedFusedDecoderVocoder(Unit):
             T = max((2 * s.length_multiple, *(s.prewarm_frames or ())))
             self._decode(torch.zeros((n, T, E), device=self._device),
                          np.full(n, max(T - 1, 1)))
-            with torch.no_grad():
-                net_synthesize_frames(
-                    self._voc_model, self._voc_params,
-                    self._fresh_vocoder_state(),
-                    torch.zeros((n, self._chunk, 20), device=self._device),
-                    sampler_weights=self._sampler_w)[0].cpu()
+            self._voc.warm(COND_BLOCK)
         self._executor = ThreadPoolExecutor(
             max_workers=1, **(dict(initializer=torch.cuda.set_device,
                                    initargs=(self._device,))
                               if self._device.type == "cuda" else {}))
 
-    def _fresh_vocoder_state(self):
-        n = self._slots.stop - self._slots.start
-        return net_vocoder_init(self._voc_model, batch=n,
-                                device=self._device)._replace(
-            slot_lo=self._slots.start, slots=self._streams)
+    @property
+    def slot_audio(self) -> dict:
+        """Slot 1.. -> int16 audio of the last word."""
+        return {i: np.concatenate(p) for i, p in self._bg_parts.items()}
 
     def shutdown(self) -> None:
         if self._world > 1 and self._rank == 0:
@@ -965,32 +930,23 @@ class ShardedFusedDecoderVocoder(Unit):
         pred, _ = self._model(x, lengths=lengths, frames=x.shape[1])
         return pred
 
-    @torch.no_grad()
-    def _vocode(self, feats: torch.Tensor) -> torch.Tensor:
-        """This rank's slots of feats [n, L, 20] -> their int16 PCM as
-        packed f32 pairs [n, L * 80]; the vocoder state advances."""
-        pcm, self._voc_state = net_synthesize_frames(
-            self._voc_model, self._voc_params, self._voc_state, feats,
-            quiet_sharpen=self.SETTINGS.quiet_sharpen,
-            sampler_weights=self._sampler_w)
-        return torch.clamp(pcm * 32767.0, -32768, 32767).to(
-            torch.int16).view(torch.float32)
-
-    def _local(self, cmd: int, arg: int, flag: int, lengths: np.ndarray,
+    def _local(self, cmd: int, arg: int, n: int, lengths: np.ndarray,
                x: Optional[torch.Tensor]):
-        """(this rank's decoded features or None, its slots' packed audio)
-        for one message: a word (x [streams, Tp, E], ``flag``: the head
-        chunk only) or the tail chunk of frames ``arg ..``."""
+        """(this rank's decoded features or None, its slots' int16 PCM
+        packed as float32 pairs) for one message: a word (x [streams, Tp,
+        E], ``arg`` = Tp), vocoded over its first ``n`` frames, or the tail
+        chunk of frames ``arg .. arg + n``; the vocoder state advances."""
+        pred, lo = None, arg
         if cmd == _WORD:
             pred = self._feats = self._decode(x[self._slots],
                                               lengths[self._slots])
-            n = self._chunk if flag else arg
-            return pred, self._vocode(self._feats[:, :n])
-        return None, self._vocode(self._feats[:, arg:arg + self._chunk])
+            lo = 0
+        return pred, self._voc.vocode(self._feats[:, lo:lo + n]).view(
+            torch.float32)
 
-    def _tell(self, cmd: int, arg: int, flag: int, lengths) -> None:
+    def _tell(self, cmd: int, arg: int, n: int, lengths) -> None:
         if self._world > 1:
-            self._header.copy_(torch.as_tensor([cmd, arg, flag, *lengths]))
+            self._header.copy_(torch.as_tensor([cmd, arg, n, *lengths]))
             dist.broadcast(self._header, self._root, group=self._group)
 
     def _gather(self, bits: torch.Tensor) -> Optional[torch.Tensor]:
@@ -1009,47 +965,34 @@ class ShardedFusedDecoderVocoder(Unit):
         E = self._model.nb_electrodes
         while True:
             dist.broadcast(self._header, self._root, group=self._group)
-            cmd, arg, flag, *lengths = self._header.tolist()
+            cmd, arg, n, *lengths = self._header.tolist()
             if cmd == _STOP:
                 return
             x = None
             if cmd == _WORD:
                 x = torch.empty((self._streams, arg, E), device=self._device)
                 dist.broadcast(x, self._root, group=self._group)
-            self._gather(self._local(cmd, arg, flag, np.asarray(lengths),
-                                     x)[1])
+            self._gather(self._local(cmd, arg, n, np.asarray(lengths), x)[1])
 
     # -- rank 0 -------------------------------------------------------------
-    def _run(self, cmd: int, arg: int, flag: int, Ts: List[int],
+    def _run(self, cmd: int, arg: int, n: int, Ts: List[int],
              x: Optional[np.ndarray] = None):
         """Rank 0: send the message, run its own slots, gather every slot's
         audio -> (rank 0's decoded features or None, audio [streams, n])."""
-        self._tell(cmd, arg, flag, Ts)
+        self._tell(cmd, arg, n, Ts)
         xd = None
         if x is not None:
             xd = torch.as_tensor(x).to(self._device)
             if self._world > 1:
                 dist.broadcast(xd, self._root, group=self._group)
-        pred, bits = self._local(cmd, arg, flag, np.asarray(Ts), xd)
+        pred, bits = self._local(cmd, arg, n, np.asarray(Ts), xd)
         return pred, self._gather(bits)
 
-    def _read(self, pred: Optional[torch.Tensor], bits: torch.Tensor,
-              T0: int):
-        """One device->host read: (slot 0's valid features or None, every
-        slot's packed audio)."""
-        F = self._model.nb_outputs
-        parts = [bits.reshape(-1)] if pred is None else \
-            [pred[0, :T0].reshape(-1), bits.reshape(-1)]
-        packed = torch.cat(parts).cpu().numpy()
-        if pred is None:
-            return None, packed
-        return packed[:T0 * F].reshape(T0, F), packed[T0 * F:]
-
     def _batch_slots(self, data: np.ndarray):
-        """Per-slot segments -> (lengths, padded length, x [streams, Tp, E],
-        mask [streams, Tp]).  Slot 0 carries the live stream; the others
-        come from ``slot_feeder`` (distinct streams with their own lengths)
-        or replay the live segment."""
+        """Per-slot segments -> (lengths, padded length, x [streams, Tp,
+        E]).  Slot 0 carries the live stream; the others come from
+        ``slot_feeder`` (distinct streams with their own lengths) or replay
+        the live segment."""
         feeder = self.SETTINGS.slot_feeder
         if feeder is None:
             segs = [data] * self._streams
@@ -1064,55 +1007,40 @@ class ShardedFusedDecoderVocoder(Unit):
         mult = self.SETTINGS.length_multiple
         Tp = -(-max(Ts) // mult) * mult
         x = np.zeros((self._streams, Tp, data.shape[1]), np.float32)
-        mask = np.zeros((self._streams, Tp), np.float32)
         for i, seg in enumerate(segs):
             x[i, :Ts[i]] = seg
-            mask[i, :Ts[i]] = 1.0
-        return Ts, Tp, x, mask
+        return Ts, Tp, x
 
     @staticmethod
-    def _unpack_slots(bits, Ts, lo_frame: int, chunk_frames: int):
-        """int16 audio per slot from the packed readback, each trimmed to
+    def _unpack_slots(pcm: np.ndarray, Ts, lo_frame: int, chunk_frames: int):
+        """int16 audio per slot from the int16 readback, each trimmed to
         its own word length (clamped: an all-pad chunk ships nothing)."""
-        pcm = np.asarray(bits).view(np.int16).reshape(len(Ts), -1)
+        pcm = pcm.reshape(len(Ts), -1)
         out = []
         for i, T in enumerate(Ts):
             valid = max(0, min(T - lo_frame, chunk_frames))
             out.append(pcm[i, : valid * FRAME_SIZE])
         return out
 
-    def _decode_and_vocode(self, data: np.ndarray):
-        """Single shot: every slot's whole word, one read."""
-        t0 = time.perf_counter()
-        Ts, Tp, x, _mask = self._batch_slots(data)
-        lpc, bits = self._read(*self._run(_WORD, Tp, 0, Ts, x), Ts[0])
-        slots = self._unpack_slots(bits, Ts, 0, Tp)
-        self.slot_audio = {i: a for i, a in enumerate(slots) if i > 0}
-        self._t_device_done = time.time()
-        self.word_ms.append((time.perf_counter() - t0) * 1000.0)
-        return lpc, slots[0]
-
-    def _decode_head(self, data: np.ndarray):
-        """Chunked word start: decode every slot and vocode its first
-        chunk, one read.  Returns (slot 0's features, its first chunk, the
-        tail chunks' frames still to vocode, the slots' lengths)."""
-        t0 = time.perf_counter()
-        Ts, Tp, x, _mask = self._batch_slots(data)
-        lpc, bits = self._read(*self._run(_WORD, Tp, 1, Ts, x), Ts[0])
-        slots = self._unpack_slots(bits, Ts, 0, self._chunk)
+    def _head(self, data: np.ndarray):
+        """Decode every slot and vocode its first chunk, one read -> (slot
+        0's features, its first chunk, the number of chunks, (the slots'
+        lengths, the chunk length) for the tails)."""
+        Ts, Tp, x = self._batch_slots(data)
+        c = self._chunk or Tp
+        pred, bits = self._run(_WORD, Tp, c, Ts, x)
+        lpc, pcm = _read_word(pred[0, :Ts[0]], bits)
+        slots = self._unpack_slots(pcm, Ts, 0, c)
         self._bg_parts = {i: [a] for i, a in enumerate(slots) if i > 0}
-        c = self._chunk
-        pending = [slice(k * c, (k + 1) * c) for k in range(1, Tp // c)]
-        self._t_device_done = time.time()
-        self.word_ms.append((time.perf_counter() - t0) * 1000.0)
-        return lpc, slots[0], pending, Ts
+        return lpc, slots[0], Tp // c, (Ts, c)
 
-    def _read_chunk(self, frames: slice, k: int, Ts) -> np.ndarray:
-        """Vocode and read tail chunk ``k`` (``frames``, an entry of the
-        head's pending list) of every slot; returns slot 0's.  Tails run
-        when they are read, as in FusedDecoderVocoder."""
-        _, bits = self._read(*self._run(_TAIL, frames.start, 0, Ts), 0)
-        slots = self._unpack_slots(bits, Ts, k * self._chunk, self._chunk)
+    def _tail(self, word, k: int) -> np.ndarray:
+        """Vocode and read tail chunk ``k`` of every slot; returns slot
+        0's.  Tails run when they are read, as in FusedDecoderVocoder."""
+        Ts, c = word
+        _, bits = self._run(_TAIL, k * c, c, Ts)
+        slots = self._unpack_slots(bits.cpu().numpy().view(np.int16), Ts,
+                                   k * c, c)
         for i, a in enumerate(slots):
             if i > 0 and len(a):
                 self._bg_parts[i].append(a)
@@ -1122,45 +1050,8 @@ class ShardedFusedDecoderVocoder(Unit):
     @publisher(LPC)
     @publisher(OUTPUT)
     @publisher(WORD)
-    async def decode(self, msg: TimeSeriesMessage) -> AsyncGenerator:
-        loop = asyncio.get_running_loop()
-        data = np.asarray(msg.data, np.float32)
-        t_dispatch = time.time()
-        if not self._chunked:
-            lpc, audio = await loop.run_in_executor(
-                self._executor, self._decode_and_vocode, data)
-            stamps = (("dv_dispatch", t_dispatch),
-                      ("dv_device_done", self._t_device_done))
-            yield self.LPC, replace(msg, data=lpc, fs=100)
-            yield self.OUTPUT, _with_stamps(msg, stamps, data=audio,
-                                            fs=16000)
-            yield self.WORD, _anonymize(msg, data=audio, fs=16000)
-            return
-
-        lpc, audio0, pending, Ts = await loop.run_in_executor(
-            self._executor, self._decode_head, data)
-        stamps = (("dv_dispatch", t_dispatch),
-                  ("dv_device_done", self._t_device_done))
-        yield self.LPC, replace(msg, data=lpc, fs=100)
-        yield self.OUTPUT, _with_stamps(msg, stamps, data=audio0, fs=16000)
-        parts = [audio0]
-        for k, frames in enumerate(pending, start=1):
-            audio_k = await loop.run_in_executor(
-                self._executor, self._read_chunk, frames, k, Ts)
-            parts.append(audio_k)
-            if len(audio_k) == 0 and k != len(pending):
-                continue  # all-pad chunk: nothing to ship
-            if k == len(pending):
-                out = _with_stamps(msg, (("dv_dispatch", t_dispatch),
-                                         ("dv_word_complete", time.time())),
-                                   data=audio_k, fs=16000)
-            else:
-                out = _anonymize(msg, data=audio_k, fs=16000)
-            yield self.OUTPUT, out
-        word = np.concatenate(parts) if len(parts) > 1 else audio0
-        self.slot_audio = {i: np.concatenate(p) for i, p in
-                           self._bg_parts.items()}
-        yield self.WORD, _anonymize(msg, data=word, fs=16000)
+    def decode(self, msg: TimeSeriesMessage) -> AsyncGenerator:
+        return _emit_word(self, msg)
 # endregion
 
 

@@ -87,11 +87,15 @@ def gaussian_noise(seed: int, batch: int, first_frame: int, frames: int,
                       r * torch.sin(theta)[..., 1::2]], dim=-1)
 
 
-def to_int16(pcm: torch.Tensor) -> np.ndarray:
+def int16_pcm(pcm: torch.Tensor) -> torch.Tensor:
     """Float PCM in [-1, 1] -> int16 by scale, clip and truncation (the
-    reference's conversion), converted on the tensor's device."""
-    return torch.clamp(pcm * 32767.0, -32768, 32767).to(torch.int16) \
-        .cpu().numpy()
+    reference's conversion), on the tensor's device."""
+    return torch.clamp(pcm * 32767.0, -32768, 32767).to(torch.int16)
+
+
+def to_int16(pcm: torch.Tensor) -> np.ndarray:
+    """``int16_pcm`` read back as numpy."""
+    return int16_pcm(pcm).cpu().numpy()
 
 
 def frame_parameters(features: torch.Tensor):

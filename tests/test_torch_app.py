@@ -123,11 +123,12 @@ def test_ini_with_a_bunched_checkpoint_runs_the_bunched_vocoder(tmp_path):
     assert unit.SETTINGS.vocoder_weights == weights
     unit.initialize()
     try:
-        assert unit._voc_model.bunch == 8
-        assert unit._sampler_w["emb"].shape == (17, 256, 1152)
-        assert unit._sampler_w["corr"].shape == (7, 2, 256, 256)
-        assert tuple(unit._voc_state.exc_idx.shape) == (1, 8)
-        assert unit._voc_state.frame_ctr == 0
+        voc = unit._voc
+        assert voc.model.bunch == 8
+        assert voc.sampler_w["emb"].shape == (17, 256, 1152)
+        assert voc.sampler_w["corr"].shape == (7, 2, 256, 256)
+        assert tuple(voc.state.exc_idx.shape) == (1, 8)
+        assert voc.state.frame_ctr == 0
     finally:
         unit.shutdown()
 

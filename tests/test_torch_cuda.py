@@ -1092,16 +1092,16 @@ def test_sharded_word_unit_chunked_equals_single_shot_on_the_card(dev, name):
         chunked, single = unit(True), unit(False)
         assert dist.get_backend() == "nccl" and chunked._world == 1
         before = kernel.launches
-        lpc_c, a0, pending, Ts = chunked._decode_head(segs[0])
-        parts = [a0] + [chunked._read_chunk(f, k, Ts)
-                        for k, f in enumerate(pending, start=1)]
+        lpc_c, a0, n_chunks, word = chunked._head(segs[0])
+        parts = [a0] + [chunked._tail(word, k) for k in range(1, n_chunks)]
         assert kernel.launches == before + 2
-        lpc_s, a0_s = single._decode_and_vocode(segs[0])
+        lpc_s, a0_s, n_single, _ = single._head(segs[0])
+        assert n_single == 1
         np.testing.assert_array_equal(lpc_c, lpc_s)
         np.testing.assert_array_equal(np.concatenate(parts), a0_s)
         assert len(a0_s) == lengths[0] * 160
         for i in range(1, 8):
-            got = np.concatenate(chunked._bg_parts[i])
+            got = chunked.slot_audio[i]
             np.testing.assert_array_equal(got, single.slot_audio[i])
             assert len(got) == lengths[i] * 160
         for u in (chunked, single):
@@ -1228,7 +1228,7 @@ def test_word_units_launch_the_decoder_kernel_once_a_word(dev):
         before = bilstm_decode.launches
         sep._decode(seg)
         assert bilstm_decode.launches == before + 1
-        fused._decode_head(seg)
+        fused._head(seg)
         assert bilstm_decode.launches == before + 2
     finally:
         for u in (sep, fused):

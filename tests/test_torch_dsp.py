@@ -311,7 +311,7 @@ def test_batched_lpcnet_dsp_backend_against_per_stream_vocoders():
                                ref.synthesize_frames(feats[i, 6:])])
         assert np.abs(out[i].astype(np.int32) - want).max() <= 1
     voc.reset()
-    assert voc._state.frame_ctr == 0
+    assert voc.state.frame_ctr == 0
     with pytest.raises(ValueError):
         voc.synthesize_frames(feats[:2])
 

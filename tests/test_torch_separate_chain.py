@@ -287,7 +287,7 @@ def test_delayed_vocoder_unit_matches_jax(monkeypatch):
             out.append([m for _, m in _drive(unit, "synthesize", msgs)])
         finally:
             if unit is port:
-                assert unit._lpcnet._state.frame_ctr == 70
+                assert unit._lpcnet.state.frame_ctr == 70
             unit.shutdown()
     for a, b, w in zip(*out, words):
         assert a.data.dtype == np.int16 and len(a.data) == len(w) * 160
@@ -319,7 +319,7 @@ def test_fused_dsp_unit_equals_separate_chain(tmp_path):
     for u in (fused, decoder, vocoder):
         u.initialize()
     try:
-        assert not fused._chunked
+        assert fused._chunk is None
         f_out = _drive(fused, "decode", segs)
         lpc = [m for _, m in _drive(decoder, "decode", segs)]
         audio = [m for _, m in _drive(vocoder, "synthesize", lpc)]

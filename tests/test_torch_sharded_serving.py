@@ -5,6 +5,8 @@ world 1.  Slots carry different segments with their own lengths, every
 slot's audio ships, each stream's vocoder state is its own, and chunked
 emission concatenates to exactly the single-shot path's audio."""
 
+import asyncio
+
 import jax
 import numpy as np
 import pytest
@@ -12,9 +14,10 @@ import torch
 import torch.distributed as dist
 
 from dss_tpu.vocoder.net import LPCNetModel as JLPCNet
+from dss_tpu_torch.runtime.messages import ClosedLoopMessage
 
 import torch_dist
-from torch_dist import SlotFeeder, run_word, serve_segments, serve_unit
+from torch_dist import SlotFeeder, serve_segments, serve_unit
 
 torch.set_num_threads(1)
 LENGTHS = [60, 30, 55, 100, 42, 77, 50, 88]
@@ -47,15 +50,25 @@ def world1_words(voc_w):
     live, *bg = serve_segments(3, LENGTHS)
     try:
         chunked = serve_unit(voc_w, SlotFeeder(bg), True)
-        assert chunked._chunked and chunked._world == 1
-        c = run_word(chunked, live)
+        assert chunked._chunk == 50 and chunked._world == 1
+        msg = ClosedLoopMessage(data=live, fs=100, received_at=0.0)
+
+        async def drain():
+            return [(s.stream.name, m) async for s, m in chunked.decode(msg)]
+        published = asyncio.run(drain())
+        lpc_c, = [m.data for s, m in published if s == "LPC"]
+        audio_c = [m.data for s, m in published if s == "OUTPUT"]
+        c = (lpc_c, np.concatenate(audio_c), dict(chunked.slot_audio))
         single = serve_unit(voc_w, SlotFeeder(bg), False)
-        lpc, a0 = single._decode_and_vocode(live)
+        assert single._chunk is None
+        lpc, a0, n_chunks, _ = single._head(live)
+        assert n_chunks == 1
+        s = (lpc, a0, dict(single.slot_audio))
         for u in (chunked, single):
             u.shutdown()
     finally:
         dist.destroy_process_group()
-    return dict(chunked=c, single=(lpc, a0, dict(single.slot_audio)))
+    return dict(chunked=c, single=s, published=published)
 
 
 def test_distinct_slots_chunked_matches_single_shot(world1_words):
@@ -65,6 +78,20 @@ def test_distinct_slots_chunked_matches_single_shot(world1_words):
     pairwise."""
     lpc_c, slot0_c, bg_c = world1_words["chunked"]
     lpc_s, slot0_s, bg_s = world1_words["single"]
+    # What the subscriber published for the chunked word (Tp 100: a head
+    # chunk and one tail): LPC; the first chunk with the word's latency
+    # stamps; the last chunk stamped as the word's completion; WORD, the
+    # whole word, anonymized.
+    published = world1_words["published"]
+    assert [s for s, _ in published] == ["LPC", "OUTPUT", "OUTPUT", "WORD"]
+    (_, first), (_, last), (_, word) = published[1:]
+    assert first.received_at == 0.0 and [k for k, _ in first.stamps] == \
+        ["dv_dispatch", "dv_device_done"]
+    assert len(first.data) == 50 * 160
+    assert last.received_at == 0.0 and [k for k, _ in last.stamps] == \
+        ["dv_dispatch", "dv_word_complete"]
+    assert word.received_at is None and word.stamps == ()
+    np.testing.assert_array_equal(word.data, slot0_c)
     np.testing.assert_array_equal(lpc_c, lpc_s)
     assert lpc_c.shape == (LENGTHS[0], 20)
     np.testing.assert_array_equal(slot0_c, slot0_s)
@@ -104,7 +131,7 @@ def test_per_stream_state_independence(voc_w, world1):
     for word in (0, 1):
         fA.word = fB.word = word
         for name, unit, live in (("A", unitA, liveA), ("B", unitB, liveB)):
-            unit._decode_and_vocode(live[word])
+            unit._head(live[word])
             words[name, word] = dict(unit.slot_audio)
         assert len(words["A", word][1]) == [18, 15][word] * 160
         np.testing.assert_array_equal(words["A", word][1],
@@ -122,7 +149,7 @@ def test_per_stream_state_independence(voc_w, world1):
 def test_slot_feeder_count_mismatch_raises(voc_w, world1):
     unit = serve_unit(voc_w, lambda n, t: serve_segments(5, [20, 20]), True)
     with pytest.raises(ValueError, match="slot_feeder"):
-        unit._decode_head(serve_segments(6, [30])[0])
+        unit._head(serve_segments(6, [30])[0])
     unit.shutdown()
 
 

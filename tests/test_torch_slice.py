@@ -290,12 +290,13 @@ def _run_fused_units_through_the_graph(tmp_path, bunch):
     np.testing.assert_array_equal(np.concatenate(sink.audio),
                                   np.concatenate(sink.words))
     assert system.FRONTEND.step_ms and system.WORDS.word_ms
-    assert system.WORDS._voc_model.bunch == bunch
+    assert system.WORDS._voc.model.bunch == bunch
 
 
 def _run_word_unit(weights, nb, T, length_multiple, chunk_emission):
     """One word of T frames through a fresh FusedDecoderVocoder on the CPU:
-    (OUTPUT chunks, WORD pcm, LPC features)."""
+    (OUTPUT chunks, WORD pcm, LPC features, every (stream name, message)
+    in the order published)."""
     import asyncio
 
     unit = FusedDecoderVocoder(FusedDecoderVocoderSettings(
@@ -317,7 +318,7 @@ def _run_word_unit(weights, nb, T, length_multiple, chunk_emission):
     chunks = [m.data for s, m in out if s == unit.OUTPUT]
     word, = [m.data for s, m in out if s == unit.WORD]
     lpc, = [m.data for s, m in out if s == unit.LPC]
-    return chunks, word, lpc
+    return chunks, word, lpc, [(s.stream.name, m) for s, m in out]
 
 
 @pytest.mark.parametrize("T, length_multiple", [(73, 50), (30, 100)])
@@ -345,9 +346,10 @@ def _check_chunked_emission(tmp_path, T, length_multiple, bunch):
     weights = tmp_path / "voc_tiny.npz"
     _tiny_vocoder_npz(weights, bunch)
     nb = 64
-    chunks, word, lpc = _run_word_unit(weights, nb, T, length_multiple, True)
-    ref_chunks, ref_word, ref_lpc = _run_word_unit(weights, nb, T,
-                                                   length_multiple, False)
+    chunks, word, lpc, msgs = _run_word_unit(weights, nb, T,
+                                             length_multiple, True)
+    ref_chunks, ref_word, ref_lpc, ref_msgs = _run_word_unit(
+        weights, nb, T, length_multiple, False)
     assert word.dtype == np.int16 and len(word) == T * 160
     np.testing.assert_array_equal(word, ref_word)
     np.testing.assert_array_equal(lpc, ref_lpc)
@@ -358,6 +360,22 @@ def _check_chunked_emission(tmp_path, T, length_multiple, bunch):
     want = [v * 160 for k, v in enumerate(valid) if v or k == n_chunks - 1]
     assert [len(c) for c in chunks] == want
     np.testing.assert_array_equal(np.concatenate(chunks), word)
+    # The emission protocol the audio sink reads: LPC, the first chunk
+    # with the word's latency stamps, later chunks anonymized, the last of
+    # several stamped as the word's completion, WORD anonymized.
+    for got, n in ((msgs, len(want)), (ref_msgs, 1)):
+        assert [name for name, _ in got] == \
+            ["LPC"] + ["OUTPUT"] * n + ["WORD"]
+        first, *rest = [m for name, m in got if name == "OUTPUT"]
+        assert first.received_at == 0.0
+        assert [k for k, _ in first.stamps] == ["dv_dispatch",
+                                                 "dv_device_done"]
+        for m in rest[:-1] + [got[-1][1]]:
+            assert m.received_at is None and m.stamps == ()
+        if rest:
+            assert rest[-1].received_at == 0.0
+            assert [k for k, _ in rest[-1].stamps] == ["dv_dispatch",
+                                                        "dv_word_complete"]
 
 
 def test_bunched_word_unit_matches_jax(tmp_path):
@@ -377,14 +395,15 @@ def test_bunched_word_unit_matches_jax(tmp_path):
         vocoder_weights=str(weights), prewarm_frames=(), device="cpu"))
     unit.initialize()
     try:
-        assert unit._voc_model.bunch == 4
+        voc = unit._voc
+        assert voc.model.bunch == 4
         seg = np.random.default_rng(3).normal(size=(T, nb)).astype(np.float32)
         pred_t, feats_t = unit._padded_features(seg, T)
-        state = tnet.net_vocoder_init(unit._voc_model, 1, device="cpu")
+        state = tnet.net_vocoder_init(voc.model, 1, device="cpu")
         assert tuple(state.exc_idx.shape) == (1, 4)
         pcm_t, _ = tnet.net_synthesize_frames(
-            unit._voc_model, unit._voc_params, state, feats_t[:, :2],
-            greedy=True, sampler_weights=unit._sampler_w)
+            voc.model, voc.params, state, feats_t[:, :2],
+            greedy=True, sampler_weights=voc.sampler_w)
         sd = {k: v.numpy() for k, v in unit._model.state_dict().items()}
     finally:
         unit.shutdown()

@@ -73,18 +73,18 @@ def test_lpcnet_frame_api_shapes_and_state(weights, rng):
     absolute frame); warm() leaves the state alone."""
     path, bunch = weights
     voc = tvoc.LPCNet(backend="net", weights=path, seed=5, device="cpu")
-    assert voc._model.bunch == bunch
+    assert voc.model.bunch == bunch
     assert voc.LPCNET_FRAME_SIZE == 160
     feats = _features(rng, 3)
     one = voc.synthesize(feats[0])
     assert one.dtype == np.int16 and one.shape == (160,)
     rest = voc.synthesize_frames(feats[1:])
     assert rest.dtype == np.int16 and rest.shape == (320,)
-    assert voc._state.frame_ctr == 3
+    assert voc.state.frame_ctr == 3
     voc.warm(2)
-    assert voc._state.frame_ctr == 3
+    assert voc.state.frame_ctr == 3
     voc.reset_decoder()
-    assert voc._state.frame_ctr == 0
+    assert voc.state.frame_ctr == 0
     again = voc.synthesize_frames(feats)
     np.testing.assert_array_equal(again, np.concatenate([one, rest]))
 
@@ -125,7 +125,7 @@ def test_int16_conversion_equals_the_jax_package(weights, rng, monkeypatch):
     tv = tvoc.LPCNet(backend="net", weights=path, device="cpu")
     monkeypatch.setattr(
         tlpcnet, "net_synthesize_frames",
-        lambda *a, **k: (torch.as_tensor(pcm), tv._state))
+        lambda *a, **k: (torch.as_tensor(pcm), tv.state))
     got = tv.synthesize_frames(feats)
     assert got.dtype == want.dtype == np.int16
     np.testing.assert_array_equal(got, want)
@@ -142,13 +142,13 @@ def test_batched_lpcnet(weights, rng):
     feats = _features(rng, 3, 2)
     out = voc.synthesize_frames(feats)
     assert out.dtype == np.int16 and out.shape == (3, 320)
-    assert tuple(voc._state.exc_idx.shape) == \
+    assert tuple(voc.state.exc_idx.shape) == \
         ((3,) if bunch == 1 else (3, bunch))
     other = feats.copy()
     other[0] += 1.0
     other[2] -= 1.0
     voc.reset()
-    assert voc._state.frame_ctr == 0
+    assert voc.state.frame_ctr == 0
     np.testing.assert_array_equal(voc.synthesize_frames(other)[1], out[1])
     with pytest.raises(ValueError):
         voc.synthesize_frames(feats[:2])
@@ -164,7 +164,7 @@ def test_backend_dsp_is_refused_not_replaced(cls, weights):
     make = (lambda **kw: tvoc.LPCNet(device="cpu", **kw)) if cls == "LPCNet" \
         else (lambda **kw: tvoc.BatchedLPCNet(batch=2, device="cpu", **kw))
     voc = make(backend="dsp", weights=path)
-    assert voc.backend == "dsp" and not hasattr(voc, "_model")
+    assert voc.backend == "dsp" and not hasattr(voc, "model")
     feats = np.zeros((2, 3, 20), np.float32)
     if cls == "LPCNet":
         out = voc.synthesize_frames(feats[0])

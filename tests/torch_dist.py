@@ -169,13 +169,11 @@ def serve_unit(voc_w, feeder, chunked, streams=8, length_multiple=50):
 
 
 def run_word(unit, live):
-    """One word through the chunked path, every tail read -> (slot 0's
+    """One word through the unit's head and every tail chunk -> (slot 0's
     features, slot 0's audio, {slot: audio} of the others)."""
-    lpc, a0, pending, Ts = unit._decode_head(live)
-    parts = [a0] + [unit._read_chunk(f, k, Ts)
-                    for k, f in enumerate(pending, start=1)]
-    return lpc, np.concatenate(parts), {i: np.concatenate(p) for i, p in
-                                        unit._bg_parts.items()}
+    lpc, a0, n_chunks, word = unit._head(live)
+    parts = [a0] + [unit._tail(word, k) for k in range(1, n_chunks)]
+    return lpc, np.concatenate(parts), unit.slot_audio
 
 
 def serve_world(rank, voc_w, lengths):
@@ -188,11 +186,7 @@ def serve_world(rank, voc_w, lengths):
         unit = serve_unit(voc_w, SlotFeeder(bg), chunked)
         out[f"slots_{chunked}"] = (unit._slots.start, unit._slots.stop)
         if rank == 0:
-            if chunked:
-                out["chunked"] = run_word(unit, live)
-            else:
-                lpc, a0 = unit._decode_and_vocode(live)
-                out["single"] = (lpc, a0, dict(unit.slot_audio))
+            out["chunked" if chunked else "single"] = run_word(unit, live)
         else:
             unit.run_worker()
         unit.shutdown()

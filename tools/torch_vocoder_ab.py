@@ -26,8 +26,9 @@ meaningful number; < ~4 dB is "same voice, same intelligibility".
 ``--rtf`` times the synthesis after a warm-up call: the best of three
 wall-clock calls, each ending in the int16 read-back with the card
 synchronized, and on the card a device figure from CUDA events around
-four chained calls (each call's state feeding the next) behind one
-synchronize, printed with the card's name.
+four chained ``vocode`` calls (each call's state feeding the next, the
+int16 conversion included) behind one synchronize, printed with the
+card's name.
 """
 
 from __future__ import annotations
@@ -70,16 +71,16 @@ def _rtf(voc, feats: np.ndarray, device: torch.device) -> dict:
     print(f"rtf: {audio_s / wall:.1f}x realtime wall ({audio_s:.2f} s audio "
           f"in {wall * 1e3:.1f} ms incl. the read-back, {device})")
     if device.type == "cuda":
-        fx = feats[None]
+        fx = torch.as_tensor(feats[None]).to(device)
         best = np.inf
         for _ in range(3):
-            st = voc._fresh_state()
+            voc.reset()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize(device)
             start.record()
             for _ in range(CHAIN):
-                _, st = voc._run(st, fx)
+                voc.vocode(fx)
             end.record()
             end.synchronize()
             best = min(best, start.elapsed_time(end) / CHAIN)
